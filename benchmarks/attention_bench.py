@@ -1,15 +1,19 @@
-"""Attention benchmark sweep — TPU analogue of the reference harness
-(``code/Performance_Comparison.py:9-166``).
+"""Attention benchmark sweep — the reference harness
+(``code/Performance_Comparison.py:9-166``) in JAX.
 
 Providers:
-  - ``flash``: our Pallas kernels (via the differentiable public API)
-  - ``xla``:   jax.nn.dot_product_attention — XLA's fused attention, the
-               TPU stand-in for the reference's PyTorch SDPA baseline
+  - ``flash``: our Pallas (Triton) kernels, via the differentiable public API
+  - ``xla``:   jax.nn.dot_product_attention(implementation="xla") — what
+               XLA makes of the plain version
+  - ``cudnn``: jax.nn.dot_product_attention(implementation="cudnn") — the
+               library's fused kernel, the reference's SDPA role (GPU only)
   - ``naive``: unfused jnp oracle (reference ``naive_attention``, OOMs first)
 
 Modes: fwd, fwd_bwd, and bwd measured as fwd_bwd − fwd (reference ``:92-95``).
+Every row names the device it ran on; sol_frac (against the published peak
+of the device's kind) is only given on a GPU.
 
-Usage:  python benchmarks/attention_bench.py [--quick]
+Usage:  python benchmarks/attention_bench.py [--quick] [--seqs 128]
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ sys.path.insert(0, ".")  # repo root
 from flashattn_tpu import flash_attention  # noqa: E402
 from flashattn_tpu.ops.common import BlockSizes  # noqa: E402
 from flashattn_tpu.ops.reference import reference_attention  # noqa: E402
+from flashattn_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from flashattn_tpu.utils.roofline import (  # noqa: E402
     attention_bwd_roofline,
     attention_fwd_roofline,
-    detect_chip,
+    device_fields,
+    gpu_chip,
 )
 from flashattn_tpu.utils.timing import (  # noqa: E402
     attention_flops,
@@ -44,45 +50,17 @@ def _provider_fn(provider: str, is_causal: bool, block_sizes=None):
         return functools.partial(
             flash_attention, is_causal=is_causal, block_sizes=block_sizes
         )
-    if provider == "xla":
-        def xla_fn(q, k, v):
+    if provider in ("xla", "cudnn"):
+        def dpa_fn(q, k, v):
             # [B,H,S,D] -> [B,S,H,D] layout expected by jax.nn API
             o = jax.nn.dot_product_attention(
                 q.swapaxes(1, 2), k.swapaxes(1, 2), v.swapaxes(1, 2),
-                is_causal=is_causal, implementation="xla",
+                is_causal=is_causal, implementation=provider,
             )
             return o.swapaxes(1, 2)
-        return xla_fn
+        return dpa_fn
     if provider == "naive":
         return functools.partial(reference_attention, is_causal=is_causal)
-    if provider == "jax_flash":
-        # jax's own Pallas TPU flash attention — the apples-to-apples
-        # competitor row (same chip, same grid abstraction). TPU-only:
-        # it exposes no interpret flag, so it cannot run on the CPU backend.
-        # Its stock defaults (512-blocks, block_b=2) measure pathologically
-        # on this rig (6-13 TF), so give it the same MXU-shaped tiles our
-        # kernel tunes to — the fair comparison is kernel-vs-kernel, not
-        # kernel-vs-default-config.
-        from jax.experimental.pallas.ops.tpu import flash_attention as jfa
-
-        bq = block_sizes.block_q if block_sizes else 1024
-        bkv = block_sizes.block_kv if block_sizes else 1024
-
-        def jax_flash_fn(q, k, v):
-            s_q, s_k = q.shape[2], k.shape[2]
-            bs = jfa.BlockSizes(
-                block_q=min(bq, s_q), block_k_major=min(bkv, s_k),
-                block_k=min(bkv, s_k), block_b=1,
-                block_q_major_dkv=min(bq, s_q),
-                block_k_major_dkv=min(bkv, s_k),
-                block_k_dkv=min(bkv, s_k), block_q_dkv=min(bq, s_q),
-                block_k_major_dq=min(bkv, s_k), block_k_dq=min(bkv, s_k),
-                block_q_dq=min(bq, s_q),
-            )
-            return jfa.flash_attention(
-                q, k, v, causal=is_causal,
-                sm_scale=1.0 / q.shape[-1] ** 0.5, block_sizes=bs)
-        return jax_flash_fn
     raise ValueError(provider)
 
 
@@ -146,9 +124,10 @@ def main():
                          "(winners persist in the autotune cache)")
     args = ap.parse_args()
 
-    chip = detect_chip()
-    print(f"# chip: {chip.name}  peak {chip.bf16_tflops} bf16 TFLOPS, "
-          f"{chip.hbm_gbps} GB/s HBM", file=sys.stderr)
+    enable_compile_cache()
+    chip = gpu_chip()
+    dev = device_fields()
+    print(f"# device: {dev}; peaks: {chip}", file=sys.stderr)
 
     seqs = [2048, 4096] if args.quick else [512, 1024, 2048, 4096, 8192, 16384]
     if args.seqs:
@@ -198,34 +177,31 @@ def main():
                             is_causal=causal,
                             warmup=3 if args.quick else 10,
                             repeat=10 if args.quick else 30,
-                            block_sizes=(tuned if provider in
-                                         ("flash", "jax_flash") else None),
+                            block_sizes=tuned if provider == "flash" else None,
                         )
                         measured[mode] = ms
                     except Exception as e:
                         # A provider that cannot run a shape (XLA's unfused
-                        # attention OOMs HBM at S>=8192 f32 logits — the
-                        # same story as the reference's naive provider,
+                        # attention runs out of memory on the S x S scores
+                        # at long S — the reference's naive provider story,
                         # Performance_Comparison.py floor) must not kill the
                         # sweep: record the failure and move on.
                         note = f"{type(e).__name__}: {e}"[:200]
                         ms, tf = None, None
-                roof = (attention_fwd_roofline if mode == "fwd"
-                        else attention_bwd_roofline)(
-                    b, h, h, s, s, d, causal, 512, 512, chip=chip
-                )
                 bad = tf is None
                 rec = {
                     "provider": provider, "mode": mode, "S": s, "D": d,
                     "causal": causal,
                     "ms": None if bad else round(ms, 3),
                     "tflops": None if bad else round(tf, 2),
-                    "sol_frac": round(roof.sol_seconds / (ms / 1e3), 3)
-                    if (mode != "fwd_bwd" and not bad) else None,
-                    # Effective MXU peak fraction (D-depth penalty) the
-                    # sol_frac ceiling already accounts for.
-                    "mxu_frac": roof.mxu_frac,
+                    "sol_frac": None,
+                    **dev,
                 }
+                if chip is not None and mode != "fwd_bwd" and not bad:
+                    roof = (attention_fwd_roofline if mode == "fwd"
+                            else attention_bwd_roofline)(
+                        b, h, h, s, s, d, causal, chip=chip)
+                    rec["sol_frac"] = round(roof.sol_seconds / (ms / 1e3), 3)
                 if note:
                     rec["note"] = note
                 results.append(rec)

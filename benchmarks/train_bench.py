@@ -1,9 +1,11 @@
-"""Single-chip training-step benchmark: tokens/s and model FLOPs/s for the
-Llama-style stack (BASELINE config 4 scale). Uses the SGD step (AdamW adds
-8 bytes/param of optimizer state — too big for 1B on a 16 GiB chip together
-with activations; multi-chip runs shard it).
+"""Single-device training-step benchmark: tokens/s and model FLOPs/s for
+the Llama-style stack (BASELINE config 4 scale). Uses the SGD step, so the
+number isolates the model's forward+backward from the optimizer. MFU is
+against the published peak of the device's kind (GPU only); every row names
+its device.
 
   python benchmarks/train_bench.py --model 1b --batch 4 --seq 2048
+  python benchmarks/train_bench.py --model tiny --batch 2 --seq 128 --sweep
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ sys.path.insert(0, ".")
 
 from flashattn_tpu.models import llama  # noqa: E402
 from flashattn_tpu.models.config import LLAMA_1B, TINY  # noqa: E402
-from flashattn_tpu.utils.roofline import detect_chip  # noqa: E402
+from flashattn_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+from flashattn_tpu.utils.roofline import device_fields, gpu_chip  # noqa: E402
 from flashattn_tpu.utils.timing import measure  # noqa: E402
 
 
@@ -45,95 +48,57 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--sweep", action="store_true",
-                    help="measure remat in {none,dots,full} x backward impl "
-                         "in {auto,split} (VERDICT r2 item #5), one JSON "
-                         "row each; rows that OOM are nulled with a note")
-    ap.add_argument("--remat", default=None, choices=["none", "dots", "attn", "full"],
-                    help="pin the remat policy for a single run (sweep "
-                         "workers use this)")
-    ap.add_argument("--bwd-impl", default=None, choices=["auto", "split",
-                                                         "fused"],
-                    help="pin the attention backward impl for a single run")
+                    help="measure remat in {none,dots,full}, one JSON row "
+                         "each; a row that runs out of memory is nulled "
+                         "with a note")
+    ap.add_argument("--remat", default="dots",
+                    choices=["none", "dots", "attn", "full"],
+                    help="remat policy of a single run")
     args = ap.parse_args()
 
+    enable_compile_cache()
     cfg = LLAMA_1B if args.model == "1b" else TINY
-    chip = detect_chip()
+    chip = gpu_chip()
     params = llama.init_params(cfg, jax.random.PRNGKey(0))
     tokens = jax.random.randint(jax.random.PRNGKey(1),
                                 (args.batch, args.seq + 1), 0,
                                 cfg.vocab_size, jnp.int32)
+    remat_map = {"none": False, "dots": "dots", "attn": "attn", "full": True}
 
     def make_step(remat):
         @jax.jit
         def step(params, tokens):
-            # remat: 1B fwd+bwd activations do not fit 16 GiB without it.
-            return llama.sgd_train_step(params, tokens, cfg, remat=remat)
+            return llama.sgd_train_step(params, tokens, cfg,
+                                        remat=remat_map[remat])
         return step
 
     toks = args.batch * args.seq
     flops = model_flops_per_token(cfg, args.seq) * toks
 
-    def row(remat, sec, bwd_impl, note=None):
+    def row(remat, sec, note=None):
         rec = {
             "bench": "train_step", "model": args.model, "B": args.batch,
-            "S": args.seq, "remat": remat, "bwd_impl": bwd_impl,
+            "S": args.seq, "remat": remat,
             "ms_per_step": round(sec * 1e3, 1) if sec else None,
             "tokens_per_s": round(toks / sec, 1) if sec else None,
             "model_tflops": round(flops / sec / 1e12, 1) if sec else None,
-            "mfu": round(flops / sec / (chip.bf16_tflops * 1e12), 3)
-            if sec else None,
+            "mfu": (round(flops / sec / (chip.bf16_tflops * 1e12), 3)
+                    if sec and chip is not None else None),
+            **device_fields(),
         }
         if note:
             rec["note"] = note
         print(json.dumps(rec), flush=True)
         return rec
 
-    if args.sweep:
-        # One SUBPROCESS per config: a config that legitimately OOMs (e.g.
-        # remat=none at 1B/B4/S2048 on 16 GiB) must not poison the later
-        # configs — a TPU RESOURCE_EXHAUSTED leaves the process's device
-        # allocator in a state where every subsequent compile also OOMs
-        # (measured round 3: the in-process sweep nulled all 6 rows while
-        # the same configs run standalone at 0.596 MFU).
-        import subprocess
-
-        for remat in ("none", "dots", "full"):
-            for impl in ("auto", "split"):
-                cmd = [sys.executable, __file__, "--model", args.model,
-                       "--batch", str(args.batch), "--seq", str(args.seq),
-                       "--remat", remat, "--bwd-impl", impl]
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=1800)
-                line = proc.stdout.strip().splitlines()
-                if proc.returncode == 0 and line:
-                    print(line[-1], flush=True)
-                else:
-                    err = (proc.stderr.strip().splitlines() or ["?"])[-1]
-                    row(remat, None, impl, err[:200])
-        return
-
-    remat_map = {"none": False, "dots": "dots", "attn": "attn", "full": True}
-    if args.bwd_impl:
-        import os
-
-        os.environ["FLASHATTN_BWD_IMPL"] = args.bwd_impl
-    if args.remat:
-        remat = args.remat
-        sec = measure(make_step(remat_map[remat]), params, tokens,
-                      warmup=3, n1=2, n2=6)
-        row(remat, sec, args.bwd_impl or "auto")
-        return
-
-    try:
-        # "dots" keeps matmul outputs across the remat boundary: +13% step
-        # time at 1B/B4/S2048 on v5e. Falls back to full remat when the
-        # saved activations blow HBM (bigger B/S).
-        remat = "dots"
-        sec = measure(make_step(remat), params, tokens, warmup=3, n1=2, n2=6)
-    except jax.errors.JaxRuntimeError:
-        remat = "full"
-        sec = measure(make_step(True), params, tokens, warmup=3, n1=2, n2=6)
-    row(remat, sec, "auto")
+    for remat in (("none", "dots", "full") if args.sweep else (args.remat,)):
+        try:
+            sec = measure(make_step(remat), params, tokens, warmup=3, n1=2,
+                          n2=6)
+        except jax.errors.JaxRuntimeError as e:  # out of device memory
+            row(remat, None, f"{type(e).__name__}: {e}"[:200])
+            continue
+        row(remat, sec)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,12 @@
-"""Correctness driver vs the platform's fused attention — the TPU analogue
+"""Correctness check vs the platform's fused attention — the counterpart
 of the reference's SDPA alignment entry point
 (``code/My_FlashAttention_optimized.py:172-226``, ``compare_with_sdpa``):
 run our kernel AND the platform baseline fwd+bwd on identical inputs and
 ``verify_results`` each of O, dQ, dK, dV with the reference thresholds.
 
-Baseline here is ``jax.nn.dot_product_attention`` (XLA's fused path), the
-closest TPU counterpart of torch SDPA. Default config mirrors the
-reference's ``__main__`` (B=4, H=8, S=256, D=64, causal) with bf16 in
-place of fp16 (TPU's half type).
+Baseline here is ``jax.nn.dot_product_attention`` (XLA's path), the JAX
+counterpart of torch SDPA. Default config mirrors the reference's
+``__main__`` (B=4, H=8, S=256, D=64, causal) with bf16 in place of fp16.
 
   python examples/compare_with_xla.py
   python examples/compare_with_xla.py --S 4096 --D 128 --no-causal
@@ -35,6 +34,9 @@ def main():
     import jax.numpy as jnp
 
     from flashattn_tpu import flash_attention, verify_results
+    from flashattn_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     keys = jax.random.split(jax.random.PRNGKey(42), 4)
     shape = (args.B, args.H, args.S, args.D)

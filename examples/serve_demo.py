@@ -32,6 +32,9 @@ def main():
     from flashattn_tpu.models import llama
     from flashattn_tpu.models.config import TINY
     from flashattn_tpu.models.serve import InferenceServer, Request
+    from flashattn_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     params = llama.init_params(TINY, jax.random.PRNGKey(0))
     if args.weight_bits:

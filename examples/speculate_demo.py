@@ -20,6 +20,9 @@ def main():
     from flashattn_tpu.models import generate, llama
     from flashattn_tpu.models.config import TINY
     from flashattn_tpu.models.speculate import speculative_generate
+    from flashattn_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = dataclasses.replace(TINY, dtype=jnp.float32)
     draft_cfg = dataclasses.replace(cfg, num_layers=1)

@@ -29,7 +29,6 @@ def main():
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + " --xla_force_host_platform_device_count=8")
-        os.environ["FLASHATTN_TPU_INTERPRET"] = "1"
         import jax
 
         jax.config.update("jax_platforms", "cpu")
@@ -38,6 +37,9 @@ def main():
 
     from flashattn_tpu.models import llama, train
     from flashattn_tpu.models.config import TINY
+    from flashattn_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = TINY
     mesh = None

@@ -1,13 +1,13 @@
-"""flashattn_tpu — a TPU-native flash-attention framework.
+"""flashattn_tpu — a flash-attention framework in JAX for NVIDIA GPUs.
 
 A from-scratch JAX/Pallas re-design of the capability surface of
-``Pearbiossom-M/FlashAttention-from-Scratch-with-Triton`` (reference mounted at
-/root/reference): fused flash-attention forward with online softmax + LSE,
-two-kernel recompute backward with delta reuse, autograd (custom_vjp)
-integration, numerical verification, and a TFLOPS benchmark harness —
-extended with flash-decode, quantized KV caches, weight-only quantized
-matmuls, variable-length batching, a Llama-style model layer, and mesh
-parallelism (TP / ring attention) for TPU pods.
+``Pearbiossom-M/FlashAttention-from-Scratch-with-Triton``: fused
+flash-attention forward with online softmax + LSE, two-kernel recompute
+backward with delta reuse (Pallas kernels through Triton), autograd
+(custom_vjp) integration, numerical verification, and a TFLOPS benchmark
+harness — extended with decode over quantized and paged KV caches,
+weight-only quantized matmuls, variable-length batching, a Llama-style model
+layer, and mesh parallelism (TP / ring / Ulysses / pipeline / experts).
 
 Public API mirrors the reference's single entry point
 (``code/My_FlashAttention_optimized.py:169-170``):

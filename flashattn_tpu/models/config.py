@@ -119,7 +119,7 @@ MISTRAL_7B = ModelConfig(
     attn_window=4096,
 )
 
-# Llama-3-8B geometry (BASELINE config 5: "8B decode on v5e multi-host").
+# Llama-3-8B geometry (BASELINE config 5: 8B decode).
 LLAMA_8B = ModelConfig(
     vocab_size=128256,
     hidden_size=4096,

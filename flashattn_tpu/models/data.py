@@ -1,7 +1,7 @@
 """Host-side packed-document data pipeline for training.
 
 The reference repo has no input pipeline (its harness synthesizes random
-q/k/v); a training framework needs one. This is the TPU-shaped version:
+q/k/v); a training framework needs one. Static shapes throughout:
 
   - **Greedy sequence packing**: variable-length tokenized documents pack
     into fixed [B, S+1] rows (static shapes — XLA compiles ONE step), with

@@ -2,8 +2,8 @@
 
 Functional inference engine: per-layer KVCache pytrees threaded through a
 lax.scan-free greedy loop (jit one step; the Python loop is dispatch-only),
-prefill through the fused training-path kernel, decode through the
-flash-decode kernel with optional FP8/INT8 quantized caches.
+prefill through the fused training-path kernel, decode through
+`ops/decode.py` with optional FP8/INT8 quantized caches.
 """
 
 from __future__ import annotations

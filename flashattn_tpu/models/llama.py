@@ -1,6 +1,6 @@
 """Llama-style decoder built on the Pallas flash-attention kernels.
 
-TPU-first design (SURVEY.md §2.3 T12 — the reference has no model layer):
+Design (SURVEY.md §2.3 T12 — the reference has no model layer):
   - pure-functional pytree params (no framework Module state), so the whole
     model jits/shards with pjit + NamedSharding and grads are plain jax.grad
   - attention runs the fused Pallas kernel; under a mesh it is wrapped in a
@@ -36,8 +36,8 @@ _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 def proj(x: jnp.ndarray, w, out_dtype=None) -> jnp.ndarray:
     """x @ w for plain arrays OR weight-only-quantized projections (the
-    int8/int4 Pallas matmul streams quantized bytes from HBM and dequants
-    in VMEM — decode projections are weight-bandwidth-bound)."""
+    int8/int4 weights convert inside the product, so they cross memory
+    at 1 or 1/2 byte — decode projections are weight-bandwidth-bound)."""
     if isinstance(w, QuantizedLinear):
         flat = x.reshape(-1, x.shape[-1])
         y = quant_matmul(flat, w, out_dtype=out_dtype)
@@ -381,11 +381,11 @@ def forward(
     segment (varlen kernels) and RoPE positions restart at each boundary.
     remat=True wraps each layer in jax.checkpoint (rematerialization):
     activations per layer shrink to the block boundary, trading one extra
-    forward pass for O(layers) memory — required for 1B+ training on a
-    single 16 GiB chip. remat="dots" keeps matmul outputs
+    forward pass for O(layers) memory — what lets long-context 1B+
+    training fit one device. remat="dots" keeps matmul outputs
     (dots_with_no_batch_dims_saveable): the backward skips recomputing the
     projections/MLP and only the cheap elementwise work replays — faster
-    when the saved activations still fit HBM."""
+    when the saved activations still fit device memory."""
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)  # [B, S, H]
     if segment_ids is not None:
@@ -420,7 +420,7 @@ def forward(
         # (Q,K,V,O,LSE, tagged "flash_resid" in ops/attention.py), so the
         # backward skips re-running the attention kernel but recomputes
         # projections/MLP/norms; ~146 MB/layer at 1B B=8 S=2048 vs
-        # "dots"' ~700 MB — the policy that fits B=8 on a 16 GB chip.
+        # "dots"' ~700 MB (sizes from the shapes).
         policy = (jax.checkpoint_policies.dots_with_no_batch_dims_saveable
                   if remat == "dots" else
                   jax.checkpoint_policies.save_only_these_names(

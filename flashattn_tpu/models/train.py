@@ -2,7 +2,7 @@
 
 The reference has no training loop or checkpointing (SURVEY.md §5:
 ``ctx.save_for_backward`` is activation stashing, not checkpointing); this is
-the TPU-native subsystem: optax AdamW with cosine schedule + grad clipping,
+the training subsystem: optax AdamW with cosine schedule + grad clipping,
 a jittable/pjit-able functional train step over the flash-attention model,
 and Orbax for durable checkpoint/resume (async-capable, pytree-structured —
 the standard JAX checkpoint layer).

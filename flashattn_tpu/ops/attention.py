@@ -1,6 +1,6 @@
 """Public flash-attention API with custom-VJP autograd integration.
 
-TPU-native counterpart of the reference's autograd layer
+Counterpart of the reference's autograd layer
 (``code/My_FlashAttention_optimized.py:130-170``): ``jax.custom_vjp``
 replaces ``torch.autograd.Function``; residuals (Q, K, V, O, LSE) mirror
 ``ctx.save_for_backward`` (``:145-147``); the backward calls the two-kernel
@@ -102,7 +102,8 @@ def flash_attention(
       is_causal: causal mask aligned to the end of the key sequence.
       scale: softmax scale, default 1/sqrt(D).
       block_sizes: kernel tile sizes (autotunable).
-      interpret: force Pallas interpreter mode (defaults to True off-TPU).
+      interpret: Pallas interpreter mode (default: True on the CPU backend,
+        False on the GPU; any other backend raises).
       dropout_rate: attention-probability dropout in [0, 1); masks are
         regenerated from a counter-based hash in fwd AND bwd — never stored
         (the reference's deferred Philox design, ``Phase_6.md:54-114``).
@@ -110,7 +111,7 @@ def flash_attention(
         per training step.
       window: sliding-window size (requires is_causal): query i attends
         keys in (i - window, i] — blocks left of the window are pruned from
-        the wavefront, not just masked.
+        the kernels' loops, not just masked.
       logit_softcap: Gemma-style logit soft-capping cap·tanh(S/cap) applied
         to the raw logits before the softmax (fwd and bwd agree exactly).
       alibi: add ALiBi position bias slope_h·(k_pos - q_pos) with the

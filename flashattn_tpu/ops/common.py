@@ -3,17 +3,14 @@
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
-import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 # Large-negative logit used for masking instead of -inf so that
-# (masked - m) subtraction never produces NaN. Same trick as production TPU
-# flash kernels; the reference uses float('-inf') on GPU
-# (_flash_attention_kernel_optimized.py:101) which Mosaic handles less well.
+# (masked - m) subtraction never produces NaN.
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
 LOG2E = math.log2(math.e)
@@ -28,187 +25,80 @@ def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
 
 
-def interpret_default() -> bool:
-    """Run Pallas kernels in interpreter mode when not on TPU.
+def next_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
-    Lets the full test suite run on the CPU backend (8 virtual devices)
-    while the same code compiles via Mosaic on real TPU chips.
-    FLASHATTN_TPU_INTERPRET=1/0 overrides (e.g. CPU-mesh dryruns in a
-    process whose default backend is the TPU plugin).
+
+def interpret_default() -> bool:
+    """Whether Pallas kernels run in the interpreter on this backend.
+
+    The CPU backend (the test suite) interprets; the GPU backend compiles
+    every kernel through Triton. Any other backend is an error: there is no
+    silent fallback to the interpreter on an accelerator.
     """
-    env = os.environ.get("FLASHATTN_TPU_INTERPRET")
-    if env is not None:
-        return env == "1"
-    return jax.default_backend() != "tpu"
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(
+        f"flashattn_tpu kernels run on 'gpu' (compiled) or 'cpu' "
+        f"(interpreted); got backend {backend!r}")
+
+
+def resolve_interpret(interpret: bool | None) -> bool:
+    """`interpret` as a launcher received it -> the mode to run in."""
+    if interpret is None:
+        return interpret_default()
+    if interpret and jax.default_backend() != "cpu":
+        raise ValueError("interpret=True is only supported on the CPU backend")
+    return interpret
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSizes:
-    """Tile sizes for the attention kernels — the TPU analogue of the
-    reference's autotune config space (BLOCK_M/BLOCK_N at
-    _flash_attention_kernel_optimized.py:18-32). TPU tiles are MXU-shaped:
-    multiples of 128 lanes / 8 sublanes, so defaults are 128-512 rather than
-    the GPU's 32/64."""
+    """Tile sizes and launch parameters of the Triton attention kernels —
+    the reference's autotune config space (BLOCK_M/BLOCK_N, num_warps,
+    num_stages at _flash_attention_kernel_optimized.py:18-32). Every block
+    is a power of two >= 16 (Triton tiles; `pl.dot` operands need 16)."""
 
-    block_q: int = 1024
-    block_kv: int = 1024
-    # Backward tiles (bwd has higher VMEM pressure, like the reference's
-    # separately-tuned bwd configs, Phase_5.md:160-162).
-    block_q_dq: int = 1024
-    block_kv_dq: int = 1024
-    block_q_dkv: int = 1024
-    block_kv_dkv: int = 1024
-    # Fused one-kernel backward tiles (flash_bwd_fused.py): the resident
-    # dK/dV accumulators dominate VMEM, so its score tiles tune separately.
-    block_q_fused: int = 1024
-    block_kv_fused: int = 1024
-    # Forward KV sub-tile unroll: split each fetched (block_kv, D) tile
-    # into this many column bands with ALL QK dots issued up front, so band
-    # u+1's MXU dot runs under band u's VPU softmax (measured on v5e: +17%
-    # causal fwd at 1024x2048/unroll=2 vs the same geometry un-unrolled).
-    # Bands must stay >= 128 columns; the launcher falls back to 1 if not.
-    unroll_kv: int = 1
-    # Forward grid shape: "wavefront" (flat live-pair grid, flash_fwd.py),
-    # "grid4" (rectangular grid, arithmetic index maps,
-    # flash_fwd_grid4.py), or "auto" (measured-defaults heuristic +
-    # autotune winners). The grids are numerically identical; they trade
-    # meta-free per-step cost (grid4, wins single-kv-fetch shapes) against
-    # zero-cost causal pruning (wavefront, wins at depth) — see
-    # flash_fwd_grid4.py's module docstring.
-    fwd_impl: str = "auto"
-    # Where Q picks up its scale*log2(e) factor. Host-side pre-scaling (the
-    # round-1 design) saves a per-element VPU multiply in the hot loop but
-    # costs a FULL extra HBM read+write of Q before the kernel — at shallow
-    # S that extra pass is a measurable fraction of the whole run (the
-    # prescale bytes scale with S while the kernel's compute scales with
-    # S^2). In-kernel scaling multiplies the fetched q tile instead: cost
-    # bq*D VPU per wavefront STEP (q is re-read per step), so it pays off
-    # exactly when rows are shallow. None = auto (per-shape heuristic in
-    # the launcher), True/False = forced (autotune-sweepable, jit-static).
-    scale_in_kernel: bool | None = None
-    # grid4 head fusion: process this many q heads per grid program (the
-    # decode kernel's h_fuse, applied to the forward grid). Amortizes the
-    # per-program pipeline cost the round-5 pair-grid experiment isolated
-    # as the residual vs jax_flash at mid-S; under GQA, fused q heads of
-    # one kv group share a single K/V fetch. 1 = off (wavefront and
-    # unsupported shapes ignore it); autotune-sweepable, jit-static.
-    fwd_h_fuse: int = 1
-    # Running-stat scratch layout: False = single-lane [:, :1] slice
-    # updates, True = full-lane (bq, 128) lane-replicated stats (every
-    # m/l read+store a full-register op — sub-lane slice stores lower to
-    # masked VPU ops; jax_flash's layout). None = measured default.
-    stats_lanes: bool | None = None
+    # Defaults: the autotune winners on an H100 at the LLAMA_1B attention
+    # shape (D=64) and the bench shape (D=128); PERF.md, "Kernel choices".
+    block_q: int = 128
+    block_kv: int = 128
+    # Backward tiles, tuned separately (Phase_5.md:160-162): dQ streams K/V
+    # blocks past one q tile, dK/dV streams q blocks past one kv tile.
+    block_q_dq: int = 64
+    block_kv_dq: int = 128
+    block_q_dkv: int = 64
+    block_kv_dkv: int = 64
+    num_warps: int = 4
+    # 3 stages won the D=128 sweep but, at 128x128 tiles, needs more than
+    # the 227 KB of shared memory a block may use once dropout is on; 2 is
+    # safe for every variant, and autotune tries 3 per shape.
+    num_stages: int = 2
 
     def clamp(self, s_q: int, s_k: int) -> "BlockSizes":
-        """Shrink tiles to the (padded) problem size."""
+        """Shrink tiles to the problem size (kept powers of two >= 16)."""
 
         def fit(b: int, s: int) -> int:
-            return max(8, min(b, round_up(s, 128)))
+            return max(16, min(next_pow2(b), next_pow2(s)))
 
-        return BlockSizes(
+        return dataclasses.replace(
+            self,
             block_q=fit(self.block_q, s_q),
             block_kv=fit(self.block_kv, s_k),
             block_q_dq=fit(self.block_q_dq, s_q),
             block_kv_dq=fit(self.block_kv_dq, s_k),
             block_q_dkv=fit(self.block_q_dkv, s_q),
             block_kv_dkv=fit(self.block_kv_dkv, s_k),
-            block_q_fused=fit(self.block_q_fused, s_q),
-            block_kv_fused=fit(self.block_kv_fused, s_k),
-            unroll_kv=self.unroll_kv,
-            fwd_impl=self.fwd_impl,
-            fwd_h_fuse=self.fwd_h_fuse,
-            scale_in_kernel=self.scale_in_kernel,
-            stats_lanes=self.stats_lanes,
         )
-
-
-def fp8e4m3_to_bf16(x: jnp.ndarray) -> jnp.ndarray:
-    """fp8 (e4m3fn) -> bf16 via integer ops, for use INSIDE kernels.
-
-    Mosaic lowers the native fp8->bf16 convert through a slow element-wise
-    path that makes fp8 KV decode ~10x slower than int8 (measured v5e); the
-    e4m3fn layout maps onto bf16 with two shifts + an exponent re-bias
-    (7 -> 127), which the VPU does at full rate. Exact for normals, sign,
-    zero; subnormals flush to zero (max abs err 2^-6 ≈ 0.002 % of the e4m3
-    range — far below KV quantization noise); NaN (0x7f) maps to a large
-    finite value, which the quantizer never emits.
-    """
-    u = jax.lax.bitcast_convert_type(x, jnp.uint8).astype(jnp.int32)
-    sign = (u & 0x80) << 8
-    mag = u & 0x7F
-    bits = sign | ((mag << 4) + (120 << 7))  # exp re-bias into bf16 position
-    bits = jnp.where(mag < 8, sign, bits)  # exp field 0: zero/subnormal
-    return jax.lax.bitcast_convert_type(
-        bits.astype(jnp.uint16), jnp.bfloat16
-    )
-
-
-def fp8e4m3_to_bf16_fast(x: jnp.ndarray) -> jnp.ndarray:
-    """fp8 (e4m3fn) -> bf16 WITHOUT the subnormal/zero select: the decode
-    kernels' hot path.
-
-    Same shift+re-bias as `fp8e4m3_to_bf16` minus the `where` (compare +
-    select are 2 of the ~8 VPU ops and measurably gate decode: v5e fp8 KV
-    streaming at S=32k improves 507 -> 604 GB/s). Codes with exp field 0
-    (zero + subnormals, |x| <= 7/512) decode to 2^-7·(1 + m/8) instead of
-    m·2^-9 — an absolute error < 2^-7, i.e. < 1.8e-5 of the e4m3 range,
-    ~400x below int8-KV's accepted per-token quantization step (1/127).
-    The exact variant remains the host-side dequant oracle; the ppl gate
-    (fp8 within 0.1 of bf16) covers this path end-to-end.
-    """
-    u = jax.lax.bitcast_convert_type(x, jnp.uint8).astype(jnp.int32)
-    sign = (u & 0x80) << 8
-    mag = u & 0x7F
-    bits = sign | ((mag << 4) + (120 << 7))
-    return jax.lax.bitcast_convert_type(
-        bits.astype(jnp.uint16), jnp.bfloat16
-    )
-
-
-def fp8e4m3_to_f32_fast(x: jnp.ndarray) -> jnp.ndarray:
-    """fp8 (e4m3fn) -> f32 in FOUR vector ops — the decode hot path.
-
-    Same value mapping as `fp8e4m3_to_bf16_fast` (subnormal-select-free,
-    see its error analysis), assembled in the F32 bit layout so the final
-    bitcast is i32 -> f32 — same width, which Mosaic supports. The op
-    chain is minimal because the byte is SIGN-extended (int8 -> i32), so
-    after `<< 20` the f32 sign bit 31 is already correct (it is the
-    sign-extension copy of fp8 bit 7) and one combined mask 0x87F00000
-    keeps {sign, exp, mantissa} while clearing the other extension bits:
-
-        v    = sign_extend_i32(byte)            # 1 convert
-        bits = ((v << 20) & 0x87F00000)         # shift + single mask
-               + 0x3C000000                     # exp re-bias 7 -> 127
-                                                # (120<<23; e+120 <= 135
-                                                #  never carries into 31)
-
-    vs the previous 7-op split-sign chain. Measured on v5e decode
-    (S=32k, B=8): 607 -> 718 GB/s, 0.877 of HBM speed-of-light — at
-    parity with the int8 stream (719). Decode is HBM-bound with the MXU
-    nearly idle, so feeding the dots f32 instead of bf16 costs nothing.
-
-    Dead ends, measured round 3: (a) the native `astype(bf16)` lowering
-    runs element-wise in Mosaic — 74 GB/s, ~10x slower; (b) the round-2
-    "pair" candidate (two bytes per i32 lane) cannot lower at all —
-    Mosaic rejects bitwidth-CHANGING bitcasts (`NotImplementedError:
-    Changing bitwidths not supported`), so its (u8,2)->u16 load and
-    i32 -> 2xbf16 store only ever ran in interpret mode.
-    """
-    v = jax.lax.bitcast_convert_type(x, jnp.int8).astype(jnp.int32)
-    bits = ((v << 20) & jnp.int32(-2014314496)) + 0x3C000000  # 0x87F00000
-    return jax.lax.bitcast_convert_type(bits, jnp.float32)
-
-
-def fp8_decode_convert(x: jnp.ndarray) -> jnp.ndarray:
-    """The fp8 converter used on the decode hot path (f32 layout — see
-    `fp8e4m3_to_f32_fast`)."""
-    return fp8e4m3_to_f32_fast(x)
 
 
 def dropout_keep_mask(seed, bh, row_ids, col_ids, rate: float):
     """Counter-based dropout keep-mask, shared by fwd and both bwd kernels.
 
-    TPU-native realization of the reference's deferred Philox design
+    Realization of the reference's deferred Philox design
     (``Phase_6.md:54-114``): the mask is a pure function of
     (seed, batch·head, GLOBAL row, GLOBAL col), so forward and backward
     regenerate bit-identical masks without storing them — and because the
@@ -225,8 +115,6 @@ def dropout_keep_mask(seed, bh, row_ids, col_ids, rate: float):
     Returns:
       (bq, bkv) bool — True = keep.
     """
-    import numpy as np  # local: keep module import surface minimal
-
     u32 = jnp.uint32
     x = row_ids.astype(u32) * np.uint32(0x9E3779B1)
     y = col_ids.astype(u32) * np.uint32(0x85EBCA77)
@@ -242,12 +130,13 @@ def dropout_keep_mask(seed, bh, row_ids, col_ids, rate: float):
     return h >= threshold
 
 
-def pad_to_block(x: jnp.ndarray, axis: int, block: int) -> jnp.ndarray:
-    """Zero-pad `axis` of x up to a multiple of `block`."""
+def pad_to_block(x: jnp.ndarray, axis: int, block: int,
+                 value=0) -> jnp.ndarray:
+    """Pad `axis` of x up to a multiple of `block` with `value`."""
     size = x.shape[axis]
     pad = round_up(size, block) - size
     if pad == 0:
         return x
     widths = [(0, 0)] * x.ndim
     widths[axis] = (0, pad)
-    return jnp.pad(x, widths)
+    return jnp.pad(x, widths, constant_values=value)

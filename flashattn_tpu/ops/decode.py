@@ -1,242 +1,132 @@
-"""Flash-decode kernel: single-token attention against a (quantized) KV cache.
+"""Decode attention: new tokens attend a (quantized) KV cache, in plain
+`jax.numpy`.
 
-SURVEY.md §2.3 T6 — absent from the reference (decode is the north_star
-extension); reuses the reference's online-softmax machinery (m, l, acc
-updates, ``_flash_attention_kernel_optimized.py:106-117``) with a
-[group, D]-shaped query tile (all query heads sharing one KV head decode
-together, so GQA costs one cache stream, not q_per_kv).
+Decode reads the whole cache once per step for a few query rows, so it sits
+far below the GPU's compute/bandwidth ridge: the only lever is the bytes
+moved, and XLA's fusion of the masked dot -> softmax -> dot chain already
+reads each cache byte once. The quantized caches store int8/fp8 values with
+per-token scales (kvcache.py); the dequantization folds into the small
+tensors instead of the cache:
 
-Decode is HBM-bandwidth-bound: one token must stream the whole KV cache once.
-Design consequences:
-  - quantized caches halve/quarter the stream (int8/fp8 kernels cast in VMEM;
-    scales fold into row vectors post-dot, see kvcache.py)
-  - blocks beyond each sequence's length are clamped in the index map, so
-    ragged batches stream only live cache bytes
-  - the grid is (B, Hkv, kv_blocks) sequential — a v5e chip has one
-    TensorCore, so GPU-style split-K adds nothing; streaming saturates HBM.
+    S  = (q̃ · K_qᵀ) ⊙ k_scale      (k scale on the logits)
+    O  = (P ⊙ v_scale) · V_q        (v scale on P)
+
+and the int8/fp8 -> bf16 convert feeds the dot directly. Logits and the
+softmax accumulate in float32.
+
+Queries of one KV group decode together ([B, Hkv, G·T, D] rows), so GQA
+reads each cache head once, not q_per_kv times.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from flashattn_tpu.ops.common import (
-    LN2,
-    LOG2E,
-    MASK_VALUE,
-    cdiv,
-    fp8_decode_convert,
-    interpret_default,
-)
 from flashattn_tpu.ops.kvcache import KVCache
 
 
-def _decode_kernel(
-    lengths_ref,  # SMEM [B] int32 (scalar-prefetched)
-    q_ref,  # (1, F, G, D) — pre-scaled by scale·log2(e); int8 in int8 mode
-    k_ref,  # (1, F, bkv, D) — bf16 | int8 | fp8
-    v_ref,  # (1, F, bkv, D)
-    *rest,  # [q_scale,] [k_scale, v_scale,] o_ref, [lse_ref,] scratches
-    quantized: bool,
-    int8_mode: bool,
-    group: int,
-    block_kv: int,
-    num_kv_blocks: int,
-    window: int | None,
-    sink: int,  # always-visible first tokens (StreamingLLM); 0 = off
-    chunk: int,
-    with_lse: bool,
-    softcap: float,
-    alibi_hq: int,  # 0 = off; else total query-head count H for the slopes
-    h_fuse: int = 1,  # KV heads per grid step (short-stream DMA batching)
+def _decode_rows(q, k, v, k_scale, v_scale, length, *, scale, window, sink,
+                 logit_softcap, slopes, with_lse):
+    """Shared decode math over a dense [B, Hkv, S, D] view of the cache.
+
+    q: [B, Hq, T, D] — token t of the chunk sits at position length - T + t
+    and attends positions <= its own (and within the window, if any).
+    """
+    b, hq, t_chunk, d = q.shape
+    _, hkv, s_max, _ = k.shape
+    group = hq // hkv
+    rows = group * t_chunk
+    compute = jnp.float32 if k.dtype == jnp.float32 else jnp.bfloat16
+    qg = q.reshape(b, hkv, rows, d).astype(compute)
+    s = jnp.einsum("bhrd,bhsd->bhrs", qg, k.astype(compute),
+                   preferred_element_type=jnp.float32)
+    if k_scale is not None:
+        s = s * k_scale  # [B, Hkv, 1, S]: per-token k dequant
+    s = s * scale
+    if logit_softcap:
+        s = logit_softcap * jnp.tanh(s / logit_softcap)
+
+    pos = jnp.arange(s_max, dtype=jnp.int32)  # [S]
+    t_idx = jnp.arange(rows, dtype=jnp.int32) % t_chunk  # row -> chunk token
+    row_pos = (length[:, None] - t_chunk + t_idx[None, :])  # [B, rows]
+    row_pos = row_pos[:, None, :, None]  # [B, 1, rows, 1]
+    if slopes is not None:
+        # Per-row slope: rows are head-major, chunk-minor.
+        row_slope = jnp.repeat(slopes.astype(jnp.float32).reshape(hkv, group),
+                               t_chunk, axis=1)[None, :, :, None]
+        s = s + row_slope * (pos - row_pos).astype(jnp.float32)
+    live = pos <= row_pos
+    if window is not None:
+        in_win = pos > row_pos - window
+        if sink:  # StreamingLLM: the first `sink` tokens never evict
+            in_win = in_win | (pos < sink)
+        live = live & in_win
+    s = jnp.where(live, s, -jnp.inf)
+
+    m = jnp.max(s, axis=-1, keepdims=True)
+    m_safe = jnp.where(jnp.isfinite(m), m, 0.0)
+    p = jnp.where(live, jnp.exp(s - m_safe), 0.0)
+    l = jnp.sum(p, axis=-1, keepdims=True)
+    if v_scale is not None:
+        p = jnp.where(live, p * v_scale, 0.0)  # [B, Hkv, 1, S]
+    # Positions at or past `length` may hold anything (a recycled slot keeps
+    # its old tail): P is 0 there, but 0 * NaN would poison the dot.
+    v = jnp.where((pos < length[:, None])[:, None, :, None], v,
+                  jnp.zeros((), v.dtype))
+    o = jnp.einsum("bhrs,bhsd->bhrd", p.astype(compute), v.astype(compute),
+                   preferred_element_type=jnp.float32)
+    l_safe = jnp.where(l == 0.0, 1.0, l)
+    o = (o / l_safe).astype(q.dtype).reshape(b, hq, t_chunk, d)
+    if not with_lse:
+        return o
+    lse = jnp.where(l == 0.0, -jnp.inf, m_safe + jnp.log(l_safe))
+    return o, lse.reshape(b, hq, t_chunk)
+
+
+def _slopes(alibi, alibi_slopes, hq):
+    if not alibi:
+        return None
+    if alibi_slopes is None:
+        from flashattn_tpu.ops.flash_fwd import default_alibi_slopes
+
+        alibi_slopes = default_alibi_slopes(hq)
+    return alibi_slopes
+
+
+def _decode_attention(
+    q: jnp.ndarray,  # [B, Hq, T, D]
+    cache: KVCache,
+    scale: float | None = None,
+    window: int | None = None,
+    sink: int = 0,
+    with_lse: bool = False,
+    logit_softcap: float | None = None,
+    alibi: bool = False,
+    alibi_slopes: jnp.ndarray | None = None,
 ):
-    if int8_mode:
-        q_scale_ref, k_scale_ref, v_scale_ref, *rest = rest
-    elif quantized:
-        k_scale_ref, v_scale_ref, *rest = rest
-    if alibi_hq:
-        slopes_ref, *rest = rest  # (F, rows, 1) f32 per-ROW slopes
-    if with_lse:
-        o_ref, lse_ref, m_scratch, l_scratch, acc_scratch = rest
-    else:
-        o_ref, m_scratch, l_scratch, acc_scratch = rest
-
-    b = pl.program_id(0)
-    kj = pl.program_id(2)
-    length = lengths_ref[b]
-    # Sliding window: only positions in [length - window, length) are live
-    # (chunked mode: the EARLIEST row's window start bounds the block skip).
-    start = (jnp.maximum(length - (chunk - 1) - window, 0)
-             if window is not None else jnp.int32(0))
-
-    @pl.when(kj == 0)
-    def _init():
-        m_scratch[...] = jnp.full_like(m_scratch, MASK_VALUE)
-        l_scratch[...] = jnp.zeros_like(l_scratch)
-        acc_scratch[...] = jnp.zeros_like(acc_scratch)
-
-    @pl.when((kj * block_kv < length)
-             & (((kj + 1) * block_kv > start) | (kj * block_kv < sink)))
-    def _step():
-      # Short KV streams are DMA-fixed-cost-bound: quantized tiles carry
-      # 1 byte/elem, so at S<=8k the per-step fetch is 256KB-512KB and the
-      # per-step pipeline bubble eats ~35% of SoL (int8, which does NO VPU
-      # dequant, measures the same 0.65 SoL as fp8 at S=2048 — the cost is
-      # the step, not the convert). h_fuse > 1 fetches that many heads'
-      # tiles in ONE block (contiguous in [B,H,S,D]) and unrolls the body,
-      # cutting grid steps h_fuse-fold at identical math.
-      for hh in range(h_fuse):
-        q = q_ref[0, hh]  # (G, D)
-        k = k_ref[0, hh]  # (bkv, D)
-        if int8_mode:
-            # Fully-int8 QK^T on the MXU (v5e int8 is native, 2x bf16):
-            # NO per-element dequant of the K tile — both scales fold into
-            # the (G, bkv) logits tile, which is bkv/D-fold smaller work.
-            s = jax.lax.dot_general(
-                q, k,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32)
-            s = s * (q_scale_ref[0, hh] * k_scale_ref[0, hh])  # (G,1)*(1,bkv)
-            if softcap > 0.0:  # s is in RAW units under softcap pre-scale
-                s = jnp.tanh(s * (1.0 / softcap)) * (softcap * LOG2E)
-        else:
-            if quantized:
-                k = (fp8_decode_convert(k) if k.dtype == jnp.float8_e4m3fn
-                     else k.astype(jnp.bfloat16))
-            s = jax.lax.dot_general(
-                q, k,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # (G, bkv), log2 domain
-            if quantized:
-                # k dequant folded into logits: S = q·(k_q·s_k)ᵀ =
-                # (q·k_qᵀ) ⊙ s_k (per column), BEFORE exp.
-                s = s * k_scale_ref[0, hh]  # (1, bkv) broadcasts over G rows
-            if softcap > 0.0:  # s is in RAW units under softcap pre-scale
-                s = jnp.tanh(s * (1.0 / softcap)) * (softcap * LOG2E)
-
-        # Length mask on the tail block (+ window mask on the head block).
-        # Chunked mode (T > 1): row r is the g = r // T query head's t-th new
-        # token (t = r % T, global position length - T + t), which attends
-        # keys at positions <= its own — causal within the chunk.
-        cols = jax.lax.broadcasted_iota(jnp.int32, (group, block_kv), 1)
-        pos = cols + kj * block_kv
-        if alibi_hq:
-            # Per-row slope tile (rows = head-major, token-minor) prepared
-            # by the launcher from the (possibly custom / head-sharded)
-            # global slope table; row r's position is length - chunk + r%T.
-            riota = jax.lax.broadcasted_iota(jnp.int32, (group, 1), 0)
-            slope = slopes_ref[hh]  # (rows, 1) f32
-            row_pos_a = length - chunk + riota % chunk
-            s = s + slope * LOG2E * (pos - row_pos_a).astype(jnp.float32)
-        if chunk > 1:
-            riota = jax.lax.broadcasted_iota(jnp.int32, (group, 1), 0)
-            row_pos = length - chunk + riota % chunk  # (rows, 1)
-            live = pos <= row_pos
-            if window is not None:
-                in_win = pos > row_pos - window
-                if sink:  # StreamingLLM: first `sink` tokens never evict
-                    in_win = in_win | (pos < sink)
-                live = live & in_win
-        else:
-            live = pos < length
-            if window is not None:
-                in_win = pos >= start
-                if sink:
-                    in_win = in_win | (pos < sink)
-                live = live & in_win
-        s = jnp.where(live, s, MASK_VALUE)
-
-        m_prev = m_scratch[hh, :, :1]
-        l_prev = l_scratch[hh, :, :1]
-        m_cur = jnp.max(s, axis=1, keepdims=True)
-        m_new = jnp.maximum(m_prev, m_cur)
-        alpha = jnp.exp2(m_prev - m_new)
-        p = jnp.exp2(s - m_new)  # (G, bkv) f32
-        if chunk > 1 and window is not None:
-            # A row whose window misses this (visited) block would get
-            # p = exp2(MASK - MASK) = 1; zero exactly.
-            p = jnp.where(live, p, 0.0)
-        l_new = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
-        m_scratch[hh] = jnp.broadcast_to(m_new, m_scratch.shape[1:])
-        l_scratch[hh] = jnp.broadcast_to(l_new, l_scratch.shape[1:])
-
-        v = v_ref[0, hh]  # (bkv, D)
-        if not quantized:
-            # Dead-region guard: V rows beyond the live length may hold
-            # arbitrary garbage (recycled slots reset `length` without
-            # wiping the tail). P is exactly 0 there, but 0 * NaN = NaN
-            # would poison the whole P·V dot — zero dead V rows. Only the
-            # bf16/f32 cache can carry NaN: int8 has no NaN encoding, and
-            # the fp8 fast convert maps the NaN code to a large FINITE
-            # value, so the quantized paths are poison-proof for free (the
-            # select on narrow dtypes measures -17%/-32% — skip it there).
-            # S-side NaN is already discarded by the `live` select on s.
-            vrow = jax.lax.broadcasted_iota(jnp.int32, (block_kv, 1), 0)
-            v = jnp.where(vrow + kj * block_kv < length, v,
-                          jnp.zeros_like(v))
-        if int8_mode:
-            # P·V on the int8 MXU too: fold the per-token v scales into P,
-            # requantize P per row (row max of p is exactly 1 pre-fold, so
-            # the dynamic range is just the v-scale spread), dot in int8,
-            # and undo the row scale on the (G, D) result.
-            pvs = p * v_scale_ref[0, hh]  # (G, bkv)
-            rmax = jnp.max(pvs, axis=1, keepdims=True)  # (G, 1)
-            rmax = jnp.where(rmax == 0.0, 1.0, rmax)
-            p_i8 = jnp.round(pvs * (127.0 / rmax)).astype(jnp.int8)
-            pv = jax.lax.dot_general(
-                p_i8, v,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32) * (rmax / 127.0)
-        else:
-            if quantized:
-                v = (fp8_decode_convert(v) if v.dtype == jnp.float8_e4m3fn
-                     else v.astype(jnp.bfloat16))
-                # v dequant folded into P (per-token scale = P columns).
-                p = p * v_scale_ref[0, hh]
-            # Cast P to v's dtype (matches the training-path kernel: full
-            # f32 caches keep f32 P, bf16 caches feed the MXU in bf16).
-            pv = jax.lax.dot_general(
-                p.astype(v.dtype), v,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        acc_scratch[hh] = acc_scratch[hh] * alpha + pv
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _finalize():
-      for hh in range(h_fuse):
-        l = l_scratch[hh, :, :1]
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, hh] = (acc_scratch[hh] / l_safe).astype(o_ref.dtype)
-        if with_lse:
-            # Natural-log LSE (same convention as the fwd kernel); empty
-            # shards (length 0 under sequence sharding) carry -inf so the
-            # cross-shard merge ignores them exactly.
-            m = m_scratch[hh, :, :1]
-            lse = (m + jnp.log2(l_safe)) * LN2
-            lse_ref[0, hh] = jnp.where(l == 0.0, -jnp.inf, lse)
+    assert sink == 0 or window is not None, "sink requires window"
+    b, hq, t_chunk, d = q.shape
+    _, hkv, _, dk = cache.k.shape
+    assert dk == d and hq % hkv == 0
+    assert not (alibi and logit_softcap), "alibi + softcap: pick one"
+    return _decode_rows(
+        q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.length,
+        scale=1.0 / (d**0.5) if scale is None else scale, window=window,
+        sink=sink, logit_softcap=logit_softcap,
+        slopes=_slopes(alibi, alibi_slopes, hq), with_lse=with_lse)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("scale", "block_kv", "interpret", "debug",
-                              "window", "sink", "logit_softcap", "alibi")
-)
+_STATIC = ("scale", "window", "sink", "logit_softcap", "alibi")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def decode_attention(
     q: jnp.ndarray,  # [B, Hq, D] — one new token per sequence
     cache: KVCache,
     scale: float | None = None,
-    block_kv: int | None = None,  # default: v5e sweep winners per mode
-    interpret: bool | None = None,
-    debug: bool = False,
     window: int | None = None,
     sink: int = 0,
     logit_softcap: float | None = None,
@@ -245,33 +135,22 @@ def decode_attention(
 ) -> jnp.ndarray:
     """Single-step decode attention against the cache -> [B, Hq, D].
 
-    sink > 0 (requires window) keeps the first `sink` tokens always
-    visible in addition to the sliding window — StreamingLLM-style
-    attention sinks, which stabilize long-streaming generation.
-
     The new token's K/V must already be appended (kvcache.update_cache), so
     position t attends tokens [0, length) including itself — or only the
-    last `window` of them (sliding window): dead head blocks are skipped
-    AND their DMA is clamped away, so long caches stream O(window) bytes.
+    last `window` of them (sliding window). sink > 0 (requires window) keeps
+    the first `sink` tokens always visible in addition to the window —
+    StreamingLLM-style attention sinks.
     """
-    return _decode_attention(q[:, :, None], cache, scale, block_kv,
-                             interpret, debug, window, sink=sink,
-                             logit_softcap=logit_softcap,
-                             alibi=alibi,
+    return _decode_attention(q[:, :, None], cache, scale, window, sink,
+                             logit_softcap=logit_softcap, alibi=alibi,
                              alibi_slopes=alibi_slopes)[:, :, 0]
 
 
-@functools.partial(
-    jax.jit, static_argnames=("scale", "block_kv", "interpret", "debug",
-                              "window", "sink", "logit_softcap", "alibi")
-)
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def decode_attention_chunk(
     q: jnp.ndarray,  # [B, Hq, T, D] — T new tokens per sequence
     cache: KVCache,
     scale: float | None = None,
-    block_kv: int | None = None,
-    interpret: bool | None = None,
-    debug: bool = False,
     window: int | None = None,
     sink: int = 0,
     logit_softcap: float | None = None,
@@ -283,234 +162,6 @@ def decode_attention_chunk(
 
     The chunk's K/V must already be appended: token t of the chunk sits at
     position length - T + t and attends positions <= its own."""
-    return _decode_attention(q, cache, scale, block_kv, interpret, debug,
-                             window, sink=sink, logit_softcap=logit_softcap,
-                             alibi=alibi, alibi_slopes=alibi_slopes)
-
-
-
-
-def pick_h_fuse(num_kv_blocks: int, esize: int, hkv: int, block_kv: int,
-                d: int, is_int8: bool = False) -> int:
-    """KV heads fetched per grid step (see _decode_kernel) — short-stream
-    DMA batching for quantized caches. Gating is strictly measured:
-
-    - round-4 A/B (v5e_decode_hfuse{1,_auto}.jsonl): single-block streams
-      win for int8/fp8 (S=2048: 0.648→0.771 / 0.632→0.766 SoL — the fixed
-      dequant cost amortizes over h_fuse heads' stream); bf16 (nothing to
-      amortize) loses; deep fused fetches (S=8192+) lose across dtypes.
-    - round-5 A/B (v5e_decode_chunk_ab.jsonl, honest timing): for INT8
-      specifically, TWO 1024-blocks with h_fuse beat the single-block
-      winner at S=2048 (0.774→0.843 SoL — the second block's fetch
-      double-buffers under the first's compute); the same arm LOSES for
-      fp8 (0.818→0.758). Hence the int8-only two-block clause.
-
-    Budget the fused K+V working set (x2 for Mosaic's double buffering)
-    to ~48 MB VMEM."""
-    two_block_int8 = (is_int8 and num_kv_blocks == 2
-                      and num_kv_blocks * block_kv <= 2048)
-    h_fuse = 1
-    if esize == 1 and (num_kv_blocks == 1 or two_block_int8):
-        budget = 48 * 1024 * 1024
-        while (h_fuse * 2 <= hkv and hkv % (h_fuse * 2) == 0
-               and 2 * (h_fuse * 2) * block_kv * d * esize * 2 <= budget):
-            h_fuse *= 2
-        if hkv % h_fuse:
-            h_fuse = 1
-    return h_fuse
-
-
-def prep_decode_q(q, hkv, int8_mode, pre):
-    """Shared decode-launcher q prep: [B,Hq,T,D] -> grouped [B,Hkv,G*T,D]
-    pre-scaled rows, plus per-row int8 quantization in int8 mode (both dots
-    then run on the native int8 MXU)."""
-    b, hq, t_chunk, d = q.shape
-    rows = (hq // hkv) * t_chunk
-    q_pre = (q.astype(jnp.float32) * pre).reshape(b, hkv, rows, d)
-    if int8_mode:
-        q_amax = jnp.max(jnp.abs(q_pre), axis=-1, keepdims=True)
-        q_scale = jnp.maximum(q_amax / 127.0, 1e-8)  # [B,Hkv,rows,1]
-        q4 = jnp.clip(jnp.round(q_pre / q_scale), -127, 127).astype(jnp.int8)
-        return q4, q_scale
-    return q_pre.astype(q.dtype), None
-
-
-def decode_slopes_rows(alibi_slopes, hq, hkv, t_chunk):
-    """Per-ROW ALiBi slope table [Hkv, rows, 1] (head-major, chunk-minor)
-    from the (possibly custom / head-sharded) global (Hq,) table."""
-    from flashattn_tpu.ops.flash_fwd import default_alibi_slopes
-
-    if alibi_slopes is None:
-        alibi_slopes = default_alibi_slopes(hq)
-    group = hq // hkv
-    return jnp.repeat(
-        alibi_slopes.astype(jnp.float32).reshape(hkv, group),
-        t_chunk, axis=1)[..., None]
-
-
-def _decode_attention(
-    q: jnp.ndarray,  # [B, Hq, T, D]
-    cache: KVCache,
-    scale: float | None,
-    block_kv: int | None,
-    interpret: bool | None,
-    debug: bool,
-    window: int | None,
-    sink: int = 0,
-    with_lse: bool = False,
-    logit_softcap: float | None = None,
-    alibi: bool = False,
-    alibi_slopes: jnp.ndarray | None = None,
-):
-    assert sink == 0 or window is not None, "sink requires window"
-    b, hq, t_chunk, d = q.shape
-    _, hkv, s_max, dk = cache.k.shape
-    assert dk == d
-    assert not (alibi and logit_softcap), "alibi + softcap: pick one"
-    assert hq % hkv == 0
-    group = hq // hkv
-    if scale is None:
-        scale = 1.0 / (d**0.5)
-    if interpret is None:
-        interpret = interpret_default()
-    assert s_max % 128 == 0, f"cache max_len must be a multiple of 128, got {s_max}"
-    if block_kv is None:
-        from flashattn_tpu.ops.autotune import cached_decode_block_kv
-
-        block_kv = cached_decode_block_kv(b, hkv, s_max, d, cache.k.dtype)
-    if block_kv is None:
-        # Quantized tiles are 1-2x smaller in bytes, so larger blocks restore
-        # the DMA:fixed-overhead ratio (v5e sweep: int8 4096, fp8 8192).
-        if cache.k.dtype == jnp.int8:
-            block_kv = 4096
-        elif cache.k.dtype == jnp.float8_e4m3fn:
-            block_kv = 8192
-        else:
-            block_kv = 2048
-    block_kv = min(block_kv, s_max)
-    while s_max % block_kv:
-        block_kv -= 128
-    num_kv_blocks = s_max // block_kv
-
-    h_fuse = pick_h_fuse(num_kv_blocks, jnp.dtype(cache.k.dtype).itemsize,
-                         hkv, block_kv, d,
-                         is_int8=cache.k.dtype == jnp.int8)
-    env_hf = os.environ.get("FLASHATTN_DECODE_HFUSE")
-    if env_hf is not None:  # A/B override
-        h_fuse = int(env_hf)
-        if h_fuse < 1 or hkv % h_fuse != 0:
-            raise ValueError(
-                f"FLASHATTN_DECODE_HFUSE={h_fuse} must divide Hkv={hkv}")
-        if h_fuse > pick_h_fuse(num_kv_blocks,
-                                jnp.dtype(cache.k.dtype).itemsize,
-                                hkv, block_kv, d,
-                                is_int8=cache.k.dtype == jnp.int8):
-            import warnings
-
-            warnings.warn(
-                f"FLASHATTN_DECODE_HFUSE={h_fuse} exceeds the pick_h_fuse "
-                "VMEM budget for this shape; expect a Mosaic VMEM error "
-                "(override is bench-only)", stacklevel=2)
-
-    # [B, Hq, T, D] -> [B, Hkv, G*T, D]: all q heads of a KV group share one
-    # cache stream; chunk tokens ride as extra rows (row r = head r // T,
-    # token r % T).
-    rows = group * t_chunk
-    quantized = cache.quantized
-    int8_mode = quantized and cache.k.dtype == jnp.int8
-    # Softcap needs RAW logits for the tanh: fold only `scale`; the kernel
-    # applies log2(e) after the cap (mirrors the training kernels).
-    pre = scale if logit_softcap else scale * LOG2E
-    q4, q_scale = prep_decode_q(q, hkv, int8_mode, pre)
-
-    def q_index(b_i, h_i, kv_i, lens):
-        return (b_i, h_i, 0, 0)
-
-    def _clamped(kv_i, lens, b_i):
-        # Clamp dead head/tail blocks onto the live range: no re-fetch DMA.
-        # (Chunked: the earliest chunk row's window start bounds `first`.)
-        last = jnp.maximum(pl.cdiv(lens[b_i], block_kv) - 1, 0)
-        first = (
-            jnp.maximum(lens[b_i] - (t_chunk - 1) - window, 0) // block_kv
-            if window is not None else 0)
-        c = jnp.clip(kv_i, first, last)
-        if sink:
-            # Attention-sink blocks sit LEFT of the window and must fetch
-            # their own data, not the window's first block.
-            c = jnp.where(kv_i * block_kv < sink, jnp.minimum(kv_i, last), c)
-        return c
-
-    def kv_index(b_i, h_i, kv_i, lens):
-        return (b_i, h_i, _clamped(kv_i, lens, b_i), 0)
-
-    def scale_index(b_i, h_i, kv_i, lens):
-        return (b_i, h_i, 0, _clamped(kv_i, lens, b_i))
-
-    in_specs = [
-        pl.BlockSpec((1, h_fuse, rows, d), q_index),
-        pl.BlockSpec((1, h_fuse, block_kv, d), kv_index),
-        pl.BlockSpec((1, h_fuse, block_kv, d), kv_index),
-    ]
-    args = [q4, cache.k, cache.v]
-    if int8_mode:
-        in_specs.append(pl.BlockSpec((1, h_fuse, rows, 1), q_index))
-        args.append(q_scale)
-    if quantized:
-        in_specs += [
-            pl.BlockSpec((1, h_fuse, 1, block_kv), scale_index),
-            pl.BlockSpec((1, h_fuse, 1, block_kv), scale_index),
-        ]
-        args += [cache.k_scale, cache.v_scale]
-    if alibi:
-        in_specs.append(pl.BlockSpec(
-            (h_fuse, rows, 1), lambda b_i, h_i, kv_i, lens: (h_i, 0, 0)))
-        args.append(decode_slopes_rows(alibi_slopes, hq, hkv, t_chunk))
-
-    kernel = functools.partial(
-        _decode_kernel,
-        quantized=quantized,
-        int8_mode=int8_mode,
-        group=rows,
-        block_kv=block_kv,
-        num_kv_blocks=num_kv_blocks,
-        window=window,
-        sink=sink,
-        chunk=t_chunk,
-        with_lse=with_lse,
-        softcap=float(logit_softcap or 0.0),
-        alibi_hq=hq if alibi else 0,
-        h_fuse=h_fuse,
-    )
-    out_specs = pl.BlockSpec((1, h_fuse, rows, d), q_index)
-    out_shape = jax.ShapeDtypeStruct((b, hkv, rows, d), q.dtype)
-    if with_lse:
-        out_specs = [out_specs,
-                     pl.BlockSpec((1, h_fuse, rows, 1), q_index)]
-        out_shape = [out_shape,
-                     jax.ShapeDtypeStruct((b, hkv, rows, 1), jnp.float32)]
-    res = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(b, hkv // h_fuse, num_kv_blocks),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((h_fuse, rows, 128), jnp.float32),
-                pltpu.VMEM((h_fuse, rows, 128), jnp.float32),
-                pltpu.VMEM((h_fuse, rows, d), jnp.float32),
-            ],
-        ),
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-        debug=debug,
-    )(cache.length, *args)
-    if with_lse:
-        o, lse = res
-        return (o.reshape(b, hq, t_chunk, d),
-                lse.reshape(b, hq, t_chunk))
-    return res.reshape(b, hq, t_chunk, d)
+    return _decode_attention(q, cache, scale, window, sink,
+                             logit_softcap=logit_softcap, alibi=alibi,
+                             alibi_slopes=alibi_slopes)

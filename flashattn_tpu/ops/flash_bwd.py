@@ -1,468 +1,231 @@
-"""Pallas TPU flash-attention backward: two-kernel recompute with delta reuse.
+"""Flash-attention backward (Pallas, Triton route): two-kernel recompute with
+delta reuse.
 
-TPU-native re-design of the reference backward
-(``code/_flash_attention_kernel_optimized.py:164-386``):
+The reference backward (``code/_flash_attention_kernel_optimized.py:164-386``)
+in its own GPU shape:
 
-  - **dQ kernel** (reference ``:164-258``): per query tile, precomputes
-    delta = row_sum(dO ⊙ O) ONCE before the K/V stream (``:209-211``),
-    recomputes S and rebuilds P = exp2((S·scale − LSE)·log2e) from the stored
-    LSE (``:230-244``), forms dP = dO·Vᵀ and dS = P ⊙ (dP − delta)
-    (``:247-250``), accumulates dQ in fp32 (``:253``), and PERSISTS delta to
-    HBM for the dKV kernel (``:258``) — the delta-reuse optimization
+  - **dQ kernel** (reference ``:164-258``): a program per (q block, B·Hq)
+    computes delta = row_sum(dO ⊙ O) once (``:209-211``), loops over the
+    K/V blocks its rows see, rebuilds P = exp2(S·log2e − LSE·log2e) from the
+    stored LSE (``:230-244``), forms dP = dO·Vᵀ and dS = P ⊙ (dP − delta)
+    (``:247-250``), accumulates dQ in float32 (``:253``), and writes delta
+    for the dK/dV kernel (``:258``) — the delta-reuse optimization
     (``Phase_5.md:529-624``).
-  - **dKV kernel** (reference ``:291-386``): per K/V tile, streams Q tiles;
-    accumulates dV += Pᵀ·dO and dK += dSᵀ·Q (``:370,382``) and LOADS the
-    delta written by the dQ kernel instead of recomputing it (``:375-376``).
+  - **dK/dV kernel** (reference ``:291-386``): a program per (kv block,
+    B·Hkv) loops over the q heads of its GQA group and, for each, over the
+    q blocks that see it; it accumulates dV += Pᵀ·dO and dK += dSᵀ·Q
+    (``:370,382``) and loads delta instead of recomputing it
+    (``:375-376``). One program owns every q head sharing its kv head, so
+    GQA needs no atomics.
 
-The ordering dependency (dKV reads dQ's delta, reference
+The ordering dependency (dK/dV reads dQ's delta, reference
 ``My_FlashAttention_optimized.py:111-126``) is a plain data dependency
-between the two pallas_calls.
-
-TPU idiom notes (not a port) — see flash_fwd.py for the shared machinery:
-  - Wavefront grids (scalar-prefetched tile coordinates) instead of
-    rectangular grids with skipped programs: causal pruning costs zero steps.
-  - Pre-scaled operands: the dQ kernel gets Q·scale·log2e, the dKV kernel
-    gets K·scale·log2e (each is used ONLY in the S recompute dot), so the S
-    tile lands in the log2 domain without a per-element rescale pass.
-  - Transposed contractions (Pᵀ·dO, dSᵀ·Q) are dot_general dimension choices,
-    never materialized transposes — the reference's "pre-transposing K loses"
-    lesson (``Phase_5.md:639-651``) applied the MXU way.
-  - GQA: the dKV wavefront enumerates (kv_block, q_head_in_group, q_block)
-    with the group sequential, so dK/dV accumulate across the query heads
-    sharing a KV head entirely in VMEM scratch.
+between the two pallas_calls. Both kernels share the forward's block-range
+split (`kv_block_range` / `q_block_range`): only blocks on a mask edge pay
+for the element mask.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from flashattn_tpu.ops.common import (
     LOG2E,
     MASK_VALUE,
     BlockSizes,
     dropout_keep_mask,
-    interpret_default,
     pad_to_block,
+    resolve_interpret,
 )
 from flashattn_tpu.ops.flash_fwd import (
-    META_CTHRESH,
-    META_FIRST,
-    META_KJ,
-    META_LAST,
-    META_LTHRESH,
-    META_QI,
-    META_RTHRESH,
-    _BIG,
-    build_wavefront,
+    check_variants,
+    default_alibi_slopes,
+    kv_block_range,
+    pad_head_dim,
+    pad_segments,
+    q_block_range,
+    run_blocks,
+    scalar_operands,
+    visibility_mask,
 )
 
-# dKV meta columns
-DKV_KJ = 0
-DKV_G = 1  # q-head index within the GQA group
-DKV_QI = 2
-DKV_FIRST = 3
-DKV_LAST = 4
-DKV_RTHRESH = 5  # causal: (col - row) <= rthresh
-DKV_ROWTHRESH = 6  # q-row padding: rows <= rowthresh
-DKV_LTHRESH = 7  # sliding window: (col - row) >= lthresh, or -BIG
-DKV_COLS = 8
+
+def _unpack_scalars(refs, has_dynoff, dropout_rate, alibi):
+    refs = list(refs)
+    dynoff_ref = refs.pop(0) if has_dynoff else None
+    seed_ref = refs.pop(0) if dropout_rate > 0.0 else None
+    slope_ref = refs.pop(0) if alibi else None
+    return dynoff_ref, seed_ref, slope_ref, refs
 
 
-def build_dkv_wavefront(
-    num_q_blocks: int,
-    num_kv_blocks: int,
-    block_q: int,
-    block_kv: int,
-    s_q: int,
-    q_per_kv: int,
-    causal_offset: int | None,
-    window: int | None = None,
-) -> np.ndarray:
-    """Live (kv_block, group, q_block) triples for the dKV kernel.
-
-    Causal: a q block contributes to kv block kj iff its last row sees kj's
-    first key (reference causal start, ``:341-342``); a sliding window also
-    bounds the q range from above (rows beyond the window see nothing).
-    """
-    assert window is None or causal_offset is not None
-    rows = []
-    for kj in range(num_kv_blocks):
-        if causal_offset is not None:
-            # Smallest qi with (qi+1)*bq - 1 + off >= kj*bkv.
-            first = 0
-            while (first + 1) * block_q - 1 + causal_offset < kj * block_kv:
-                first += 1
-            first = min(first, num_q_blocks - 1)
-        else:
-            first = 0
-        last_q = num_q_blocks - 1
-        if window is not None:
-            # Largest q row seeing kj's last key:
-            # r <= ((kj+1)*bkv - 1) - offset + window - 1.
-            max_row = (kj + 1) * block_kv - 1 - causal_offset + window - 1
-            last_q = min(last_q, max(first, max_row // block_q))
-        for g in range(q_per_kv):
-            for qi in range(first, last_q + 1):
-                if causal_offset is not None and (
-                    (kj + 1) * block_kv - 1 > qi * block_q + causal_offset
-                ):
-                    rthresh = causal_offset + qi * block_q - kj * block_kv
-                else:
-                    rthresh = _BIG
-                if qi == num_q_blocks - 1 and s_q % block_q != 0:
-                    rowthresh = s_q - 1 - qi * block_q
-                else:
-                    rowthresh = _BIG
-                lthresh = -_BIG
-                if window is not None:
-                    lth = (causal_offset - window + 1 + qi * block_q
-                           - kj * block_kv)
-                    if lth > -(block_q - 1):
-                        lthresh = lth
-                rows.append([
-                    kj, g, qi,
-                    int(g == 0 and qi == first),
-                    int(g == q_per_kv - 1 and qi == last_q),
-                    rthresh, rowthresh, lthresh,
-                ])
-    return np.asarray(rows, dtype=np.int32)
-
-
-def _dq_kernel(
-    meta_ref,  # SMEM (7, L) int32 — fwd wavefront layout, step axis last
-    *refs,  # [seed,] q, k, v, o, do, lse, [seg_q, seg_k,] dq, delta, scratch
-    needs_mask: bool,
-    guard_zero_rows: bool,
-    segmented: bool,
-    windowed: bool,
-    softcap: float,
-    alibi: bool,
-    dropout_rate: float,
-    hq: int,
-    block_q: int,
-    block_kv: int,
-    causal_offset: int,
-    scale: float,
-    dynamic_offset: bool = False,
-    window_size: int = 0,
-):
-    # dynoff (1,) SMEM int32 (dynamic_offset only): traced q/k alignment for
-    # device-dependent shard offsets (zigzag hops) — see flash_fwd.
-    # seed (1,) SMEM int32 (dropout only); q (1,1,bq,D) pre-scaled by
-    # scale·log2(e); k/v (1,1,bkv,D); o/do (1,1,bq,D); lse (1,1,bq,1);
-    # seg_q (1,bq,1) / seg_k (1,1,bkv) int32; outs dq (1,1,bq,D), delta
-    # (1,1,bq,1) f32; scratch dq_acc (bq,D) f32, delta_scratch (bq,128) f32.
-    if dynamic_offset:
-        dynoff_ref, *refs = refs
-    if dropout_rate > 0.0:
-        seed_ref, *refs = refs
-    if alibi:
-        slopes_ref, *refs = refs  # SMEM (Hq,) f32 per-head ALiBi slopes
-    if segmented:
-        (q_ref, k_ref, v_ref, o_ref, do_ref, lse_ref, segq_ref, segk_ref,
-         dq_ref, delta_ref, dq_acc, delta_scratch) = refs
-    else:
-        (q_ref, k_ref, v_ref, o_ref, do_ref, lse_ref,
-         dq_ref, delta_ref, dq_acc, delta_scratch) = refs
-    step = pl.program_id(2)
-    row_first = meta_ref[META_FIRST, step] == 1
-
-    @pl.when(row_first)
-    def _init():
-        # delta = row_sum(dO ⊙ O), computed once per q tile and persisted to
-        # HBM for the dKV kernel (reference :209-211, :258). Only the live
-        # (bq, 1) scratch column is written, and dq_acc needs no init — the
-        # row's first step writes it through (predicated below); a full
-        # zeros pass is pure per-q-row boundary overhead.
-        do = do_ref[0, 0].astype(jnp.float32)
-        o = o_ref[0, 0].astype(jnp.float32)
-        delta = jnp.sum(do * o, axis=1, keepdims=True)  # (bq, 1)
-        delta_scratch[:, :1] = delta
-        delta_ref[0, 0] = delta
-
-    q = q_ref[0, 0]
-    k = k_ref[0, 0]
-    v = v_ref[0, 0]
-    do = do_ref[0, 0]
-    lse2 = lse_ref[0, 0] * LOG2E  # (bq, 1) -> log2 units
-
-    s = jax.lax.dot_general(
-        q, k,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # log2 domain (q pre-scaled); true logits under softcap
+def _logits(s, softcap):
+    """Log2-domain logits from the raw product; with soft-capping also the
+    tanh value the gradient needs (d cap·tanh(x/cap)/dx = 1 - tanh²)."""
     if softcap > 0.0:
-        t_cap = jnp.tanh(s * (1.0 / softcap))
-        s = t_cap * (softcap * LOG2E)
-    if alibi:
-        slope = slopes_ref[pl.program_id(1)]
-        aoff = dynoff_ref[0] if dynamic_offset else causal_offset
-        r1a = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-        c1a = jax.lax.broadcasted_iota(jnp.int32, (1, block_kv), 1)
-        dist = ((c1a + meta_ref[META_KJ, step] * block_kv)
-                - (r1a + meta_ref[META_QI, step] * block_q)
-                - aoff).astype(jnp.float32)
-        s = s + (slope * LOG2E) * dist
+        t = jnp.tanh(s * (1.0 / softcap))
+        return t * (softcap * LOG2E), t
+    return s, None
 
-    mask = None
-    if needs_mask:
-        # Collapsed causal+ragged mask (see flash_fwd): one broadcasted
-        # compare against a per-row column limit.
-        rows1 = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-        limit = jnp.minimum(rows1 + meta_ref[META_RTHRESH, step],
-                            meta_ref[META_CTHRESH, step])  # (bq, 1)
-        cols1 = jax.lax.broadcasted_iota(jnp.int32, (1, block_kv), 1)
-        mask = cols1 <= limit  # (bq, bkv)
-        if windowed and dynamic_offset:
-            lth = (dynoff_ref[0] - (window_size - 1)
-                   + meta_ref[META_QI, step] * block_q
-                   - meta_ref[META_KJ, step] * block_kv)
-            mask = mask & (cols1 >= rows1 + lth)
-        elif windowed:
-            mask = mask & (cols1 >= rows1 + meta_ref[META_LTHRESH, step])
+
+def _dq_kernel(*refs, hq, block_q, block_kv, num_kv_blocks, s_k, causal,
+               window, static_offset, has_dynoff, dropout_rate, alibi,
+               segmented, softcap, scale):
+    dynoff_ref, seed_ref, slope_ref, refs = _unpack_scalars(
+        refs, has_dynoff, dropout_rate, alibi)
+    q_ref, k_ref, v_ref, o_ref, do_ref, lse_ref = refs[:6]
+    del refs[:6]
+    segq_ref, segk_ref = (refs[:2] if segmented else (None, None))
     if segmented:
-        seg_mask = segq_ref[0] == segk_ref[0]  # (bq,1)==(1,bkv) -> (bq,bkv)
-        mask = seg_mask if mask is None else (mask & seg_mask)
-    if mask is not None:
-        s = jnp.where(mask, s, MASK_VALUE)
+        del refs[:2]
+    dq_ref, delta_ref = refs
 
-    # Rebuild P from stored LSE (reference :243-244; math Phase_4.md:143-158).
-    p = jnp.exp2(s - lse2)  # (bq, bkv) f32
-    if segmented or windowed:
-        # Empty rows carry LSE = -inf (segments, or a sharded/pos_offset
-        # windowed call whose window misses this shard); exp2(MASK - (-inf))
-        # = inf — select through the mask so the contribution is exactly 0.
-        p = jnp.where(mask, p, 0.0)
-    if guard_zero_rows:
-        riota = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-        valid = riota + (meta_ref[META_QI, step] * block_q + causal_offset) >= 0
-        p = jnp.where(valid, p, 0.0)
+    qi = pl.program_id(0)
+    bh = pl.program_id(1)
+    offset = dynoff_ref[...] if has_dynoff else static_offset
+    q = q_ref[...]  # pre-scaled by scale·log2(e) (scale only w/ softcap)
+    do = do_ref[...]
+    delta = jnp.sum(do.astype(jnp.float32) * o_ref[...].astype(jnp.float32),
+                    axis=1)
+    delta_ref[...] = delta
+    lse2 = lse_ref[...] * LOG2E  # padded rows carry +inf -> P = 0
+    rows = qi * block_q + jnp.arange(block_q, dtype=jnp.int32)[:, None]
+    segq = segq_ref[...][:, None] if segmented else None
+    tail = s_k if s_k % block_kv else None
 
-    dp = jax.lax.dot_general(
-        do, v,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    if dropout_rate > 0.0:
-        # Regenerate the forward's keep-mask; dS = P ⊙ (M⊙dP/(1-r) − δ)
-        # (δ = rowsum(dO⊙O) already carries the dropout through O).
-        rows_g = meta_ref[META_QI, step] * block_q + jax.lax.broadcasted_iota(
-            jnp.int32, (block_q, 1), 0)
-        cols_g = meta_ref[META_KJ, step] * block_kv + jax.lax.broadcasted_iota(
-            jnp.int32, (1, block_kv), 1)
-        bh = pl.program_id(0) * hq + pl.program_id(1)
-        keep = dropout_keep_mask(seed_ref[0], bh, rows_g, cols_g,
-                                 dropout_rate)
-        dp = jnp.where(keep, dp * (1.0 / (1.0 - dropout_rate)), 0.0)
-    ds = p * (dp - delta_scratch[:, :1])  # (bq, bkv) f32
-    if softcap > 0.0:
-        ds = ds * (1.0 - t_cap * t_cap)  # d(cap·tanh(x/cap))/dx
-    dq_contrib = jax.lax.dot_general(
-        ds.astype(q.dtype), k,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    def body(j, dq, masked):
+        kv_slice = pl.ds(j * block_kv, block_kv)
+        k = k_ref[kv_slice, :]
+        v = v_ref[kv_slice, :]
+        s, t_cap = _logits(pl.dot(q, k, trans_b=True), softcap)
+        cols = j * block_kv + jnp.arange(block_kv, dtype=jnp.int32)[None, :]
+        if alibi:
+            s = s + (slope_ref[...] * LOG2E) * (
+                cols - rows - offset).astype(jnp.float32)
+        mask = None
+        if masked:
+            mask = visibility_mask(rows, cols, offset, causal=causal,
+                                   window=window, s_k=tail)
+            if segmented:
+                seg = segq == segk_ref[kv_slice][None, :]
+                mask = seg if mask is None else mask & seg
+        if mask is not None:
+            s = jnp.where(mask, s, MASK_VALUE)
+        p = jnp.exp2(s - lse2[:, None])
+        if mask is not None:
+            # Rows with no visible key carry LSE = -inf: select, never scale.
+            p = jnp.where(mask, p, 0.0)
+        dp = pl.dot(do, v, trans_b=True)
+        if dropout_rate > 0.0:
+            # Regenerate the forward's keep-mask; dS = P ⊙ (M⊙dP/(1-r) − δ)
+            # (δ = rowsum(dO⊙O) already carries the dropout through O).
+            keep = dropout_keep_mask(seed_ref[...], bh, rows, cols,
+                                     dropout_rate)
+            dp = jnp.where(keep, dp * (1.0 / (1.0 - dropout_rate)), 0.0)
+        ds = p * (dp - delta[:, None])
+        if t_cap is not None:
+            ds = ds * (1.0 - t_cap * t_cap)
+        return dq + pl.dot(ds.astype(k.dtype), k)
 
-    @pl.when(row_first)
-    def _dq_write_through():
-        dq_acc[...] = dq_contrib
-
-    @pl.when(jnp.logical_not(row_first))
-    def _dq_rmw():
-        dq_acc[...] += dq_contrib
-
-    @pl.when(meta_ref[META_LAST, step] == 1)
-    def _finalize():
-        dq_ref[0, 0] = (dq_acc[...] * scale).astype(dq_ref.dtype)
+    bounds = kv_block_range(
+        qi, block_q=block_q, block_kv=block_kv, num_kv_blocks=num_kv_blocks,
+        s_k=s_k, offset=offset, causal=causal, window=window,
+        segmented=segmented)
+    dq = run_blocks(bounds, body,
+                    jnp.zeros((block_q, q_ref.shape[-1]), jnp.float32))
+    dq_ref[...] = (dq * scale).astype(dq_ref.dtype)
 
 
-def _dkv_kernel(
-    meta_ref,  # SMEM (8, L) int32 — dKV wavefront layout, step axis last
-    *refs,  # [seed,] q, do, lse, delta, k, v, [seg_q, seg_k,] dk, dv, scr.
-    needs_mask: bool,
-    guard_zero_rows: bool,
-    segmented: bool,
-    windowed: bool,
-    softcap: float,
-    alibi: bool,
-    dropout_rate: float,
-    hq: int,
-    q_per_kv: int,
-    block_q: int,
-    block_kv: int,
-    causal_offset: int,
-    scale: float,
-    dynamic_offset: bool = False,
-    window_size: int = 0,
-):
-    # seed (1,) SMEM int32 (dropout only); q/do (1,1,bq,D); lse/delta
-    # (1,1,1,bq) — reshaped host-side so q-row stats arrive lane-major
-    # (delta written by the dQ kernel); k (1,1,bkv,D) pre-scaled by
-    # scale·log2(e); v (1,1,bkv,D); seg_q (1,1,bq) / seg_k (1,bkv,1)
-    # int32; outs dk/dv (1,1,bkv,D); scratch dk_acc/dv_acc (bkv,D) f32.
-    #
-    # The whole kernel works on Sᵀ tiles (bkv, bq): with KV rows in sublanes
-    # and q rows in lanes, ALL THREE matmuls (Sᵀ = K·Qᵀ, dV += Pᵀ·dO,
-    # dK += dSᵀ·Q) contract over the minor axis of the left operand — the
-    # MXU-native orientation. The row-major formulation needs two
-    # sublane-axis contractions (Pᵀ·dO, dSᵀ·Q), and Mosaic's in-register
-    # relayout of a 1024² tile per step costs ~15% of the kernel (measured
-    # v5e: 63.5% -> ~75% of peak). The reference's "pre-transposing K loses"
-    # lesson (Phase_5.md:639-651) survives as: transpose the MATH, not the
-    # data.
-    if dynamic_offset:
-        dynoff_ref, *refs = refs
-    if dropout_rate > 0.0:
-        seed_ref, *refs = refs
-    if alibi:
-        slopes_ref, *refs = refs  # SMEM (Hq,) f32 per-head ALiBi slopes
+def _dkv_kernel(*refs, hq, hkv, q_per_kv, block_q, block_kv, num_q_blocks,
+                s_q_p, causal, window, static_offset, has_dynoff,
+                dropout_rate, alibi, segmented, softcap, scale):
+    dynoff_ref, seed_ref, slope_ref, refs = _unpack_scalars(
+        refs, has_dynoff, dropout_rate, alibi)
+    q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref = refs[:6]
+    del refs[:6]
+    segq_ref, segk_ref = (refs[:2] if segmented else (None, None))
     if segmented:
-        (q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref, segq_ref,
-         segk_ref, dk_ref, dv_ref, dk_acc, dv_acc) = refs
-    else:
-        (q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref,
-         dk_ref, dv_ref, dk_acc, dv_acc) = refs
-    step = pl.program_id(2)
-    # No accumulator init: the kv tile's first step writes dk_acc/dv_acc
-    # through (predicated below) instead of zeroing them first.
-    col_first = meta_ref[DKV_FIRST, step] == 1
+        del refs[:2]
+    dk_ref, dv_ref = refs
 
-    q = q_ref[0, 0]
-    do = do_ref[0, 0]
-    lse2 = lse_ref[0, 0] * LOG2E  # (1, bq) — q-row stats in lanes
-    delta = delta_ref[0, 0]  # (1, bq)
-    k = k_ref[0, 0]
-    v = v_ref[0, 0]
+    kj = pl.program_id(0)
+    bhk = pl.program_id(1)
+    batch = bhk // hkv
+    offset = dynoff_ref[...] if has_dynoff else static_offset
+    k = k_ref[...]  # pre-scaled by scale·log2(e) (scale only w/ softcap)
+    v = v_ref[...]
+    cols = kj * block_kv + jnp.arange(block_kv, dtype=jnp.int32)[None, :]
+    segk = segk_ref[...][None, :] if segmented else None
+    bounds = q_block_range(
+        kj, block_q=block_q, block_kv=block_kv, num_q_blocks=num_q_blocks,
+        offset=offset, causal=causal, window=window, segmented=segmented)
 
-    s = jax.lax.dot_general(
-        k, q,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # Sᵀ (bkv, bq); log2 domain (k pre-scaled); true logits under softcap
-    if softcap > 0.0:
-        t_cap = jnp.tanh(s * (1.0 / softcap))
-        s = t_cap * (softcap * LOG2E)
-    if alibi:
-        h_q = pl.program_id(1) * q_per_kv + meta_ref[DKV_G, step]
-        slope = slopes_ref[h_q]
-        aoff = dynoff_ref[0] if dynamic_offset else causal_offset
-        k1a = jax.lax.broadcasted_iota(jnp.int32, (block_kv, 1), 0)
-        q1a = jax.lax.broadcasted_iota(jnp.int32, (1, block_q), 1)
-        dist = ((k1a + meta_ref[DKV_KJ, step] * block_kv)
-                - (q1a + meta_ref[DKV_QI, step] * block_q)
-                - aoff).astype(jnp.float32)
-        s = s + (slope * LOG2E) * dist
+    def head_body(g, carry):
+        h = (bhk % hkv) * q_per_kv + g  # q head within the batch row
+        slope = slope_ref[h] if alibi else None
 
-    mask = None
-    if needs_mask:
-        # Padded query rows carry zero LSE — they MUST contribute nothing to
-        # dK/dV (padding-row masking, reference :355-356). Folding the row
-        # threshold into the per-q-lane KV limit (-BIG for dead rows) keeps
-        # the full-tile work to ONE broadcasted compare. Transposed layout:
-        # q rows are LANES (q1a), kv rows are SUBLANES (k1a).
-        q1m = jax.lax.broadcasted_iota(jnp.int32, (1, block_q), 1)
-        limit = jnp.where(q1m <= meta_ref[DKV_ROWTHRESH, step],
-                          q1m + meta_ref[DKV_RTHRESH, step], -_BIG)
-        k1m = jax.lax.broadcasted_iota(jnp.int32, (block_kv, 1), 0)
-        mask = k1m <= limit  # (bkv, bq)
-        if windowed and dynamic_offset:
-            lth = (dynoff_ref[0] - (window_size - 1)
-                   + meta_ref[DKV_QI, step] * block_q
-                   - meta_ref[DKV_KJ, step] * block_kv)
-            mask = mask & (k1m >= q1m + lth)
-        elif windowed:
-            mask = mask & (k1m >= q1m + meta_ref[DKV_LTHRESH, step])
-    if segmented:
-        seg_mask = segk_ref[0] == segq_ref[0]  # (bkv,1)==(1,bq) -> (bkv,bq)
-        mask = seg_mask if mask is None else (mask & seg_mask)
-    if mask is not None:
-        s = jnp.where(mask, s, MASK_VALUE)
+        def body(i, carry, masked):
+            dk, dv = carry
+            # q, dO and the row stats of all q_per_kv heads are stacked
+            # along the row axis: head g's rows start at g * s_q_p.
+            q_slice = pl.ds(g * s_q_p + i * block_q, block_q)
+            q = q_ref[q_slice, :]
+            do = do_ref[q_slice, :]
+            lse2 = lse_ref[q_slice] * LOG2E  # padded rows carry +inf
+            delta = delta_ref[q_slice]
+            rows = i * block_q + jnp.arange(block_q, dtype=jnp.int32)[:, None]
+            s, t_cap = _logits(pl.dot(q, k, trans_b=True), softcap)
+            if alibi:
+                s = s + (slope * LOG2E) * (
+                    cols - rows - offset).astype(jnp.float32)
+            mask = None
+            if masked:
+                mask = visibility_mask(rows, cols, offset, causal=causal,
+                                       window=window, s_k=None)
+                if segmented:
+                    seg = (segq_ref[pl.ds(i * block_q, block_q)][:, None]
+                           == segk)
+                    mask = seg if mask is None else mask & seg
+            if mask is not None:
+                s = jnp.where(mask, s, MASK_VALUE)
+            p = jnp.exp2(s - lse2[:, None])
+            if mask is not None:
+                p = jnp.where(mask, p, 0.0)
+            dp = pl.dot(do, v, trans_b=True)
+            p_v = p
+            if dropout_rate > 0.0:
+                # Same keep-mask as the forward: keyed on global (row, col)
+                # and the true q head, whatever the tile sizes.
+                keep = dropout_keep_mask(seed_ref[...], batch * hq + h, rows,
+                                         cols, dropout_rate)
+                inv = 1.0 / (1.0 - dropout_rate)
+                p_v = jnp.where(keep, p * inv, 0.0)  # dV sees the dropped P
+                dp = jnp.where(keep, dp * inv, 0.0)
+            dv = dv + pl.dot(p_v.astype(do.dtype), do, trans_a=True)
+            ds = p * (dp - delta[:, None])
+            if t_cap is not None:
+                ds = ds * (1.0 - t_cap * t_cap)
+            dk = dk + pl.dot(ds.astype(q.dtype), q, trans_a=True)
+            return dk, dv
 
-    p = jnp.exp2(s - lse2)  # Pᵀ (bkv, bq) f32
-    if segmented or windowed:
-        p = jnp.where(mask, p, 0.0)  # empty rows carry LSE = -inf
-    if guard_zero_rows:
-        q1g = jax.lax.broadcasted_iota(jnp.int32, (1, block_q), 1)
-        valid = q1g + (meta_ref[DKV_QI, step] * block_q + causal_offset) >= 0
-        p = jnp.where(valid, p, 0.0)
+        return run_blocks(bounds, body, carry)
 
-    if dropout_rate > 0.0:
-        # Same keep-mask as the forward: keyed on GLOBAL (row, col) and the
-        # true q-head (this grid iterates kv heads; the group offset maps
-        # back), so it agrees even if tile sizes differ between passes. The
-        # broadcast shapes are transposed with the tile; values match.
-        rows_g = meta_ref[DKV_QI, step] * block_q + jax.lax.broadcasted_iota(
-            jnp.int32, (1, block_q), 1)
-        cols_g = meta_ref[DKV_KJ, step] * block_kv + jax.lax.broadcasted_iota(
-            jnp.int32, (block_kv, 1), 0)
-        h_q = pl.program_id(1) * q_per_kv + meta_ref[DKV_G, step]
-        bh = pl.program_id(0) * hq + h_q
-        keep = dropout_keep_mask(seed_ref[0], bh, rows_g, cols_g,
-                                 dropout_rate)
-        inv = 1.0 / (1.0 - dropout_rate)
-        p_v = jnp.where(keep, p * inv, 0.0)  # dV sees the dropped P
-    else:
-        p_v = p
-
-    # dV += Pᵀ · dO — (bkv, bq) x (bq, D): natural orientation.
-    dv_contrib = jax.lax.dot_general(
-        p_v.astype(do.dtype), do,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(col_first)
-    def _dv_write_through():
-        dv_acc[...] = dv_contrib
-
-    @pl.when(jnp.logical_not(col_first))
-    def _dv_rmw():
-        dv_acc[...] += dv_contrib
-
-    # dPᵀ = V · dOᵀ (bkv, bq).
-    dp = jax.lax.dot_general(
-        v, do,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    if dropout_rate > 0.0:
-        dp = jnp.where(keep, dp * inv, 0.0)
-    ds = p * (dp - delta)  # delta loaded, not recomputed (reference :375-376)
-    if softcap > 0.0:
-        ds = ds * (1.0 - t_cap * t_cap)
-    # dK += dSᵀ · Q — (bkv, bq) x (bq, D): natural orientation.
-    dk_contrib = jax.lax.dot_general(
-        ds.astype(q.dtype), q,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(col_first)
-    def _dk_write_through():
-        dk_acc[...] = dk_contrib
-
-    @pl.when(jnp.logical_not(col_first))
-    def _dk_rmw():
-        dk_acc[...] += dk_contrib
-
-    @pl.when(meta_ref[DKV_LAST, step] == 1)
-    def _finalize():
-        dk_ref[0, 0] = (dk_acc[...] * scale).astype(dk_ref.dtype)
-        dv_ref[0, 0] = dv_acc[...].astype(dv_ref.dtype)
+    d = k_ref.shape[-1]
+    zeros = jnp.zeros((block_kv, d), jnp.float32)
+    dk, dv = jax.lax.fori_loop(0, q_per_kv, head_body, (zeros, zeros))
+    dk_ref[...] = (dk * scale).astype(dk_ref.dtype)
+    dv_ref[...] = dv.astype(dv_ref.dtype)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("is_causal", "scale", "block_sizes", "interpret",
                      "debug", "dropout_rate", "window", "logit_softcap",
-                     "alibi", "impl", "pos_offset"),
+                     "alibi", "pos_offset"),
 )
 def flash_attention_backward(
     q: jnp.ndarray,
@@ -483,331 +246,177 @@ def flash_attention_backward(
     logit_softcap: float | None = None,
     alibi: bool = False,
     alibi_slopes: jnp.ndarray | None = None,  # (Hq,) f32; None = standard
-    impl: str = "auto",
     pos_offset: int | None = None,
     dyn_pos_offset: jnp.ndarray | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Flash-attention backward (launcher layer + implementation dispatch).
+    """Flash-attention backward (the reference ``flash_attention_backward``,
+    ``My_FlashAttention_optimized.py:62-128``): the dQ kernel, then the
+    dK/dV kernel reusing its delta.
 
-    TPU analogue of the reference ``flash_attention_backward``
-    (``My_FlashAttention_optimized.py:62-128``), with two implementations:
-
-      - ``fused``: one kernel, dK/dV accumulators resident in VMEM — 5
-        matmul passes, exp2 once (flash_bwd_fused.py). The default
-        whenever the accumulators fit VMEM.
-      - ``split``: the reference's two-kernel structure (dQ persists delta,
-        dKV reloads it) — the long-context fallback.
-
-    ``impl``: "auto" (VMEM-based dispatch), "fused", or "split".
-
-    segment_ids: optional (seg_q [B,S_q], seg_k [B,S_k]) varlen ids — must
-    match the forward call that produced o/lse.
-
-    ``pos_offset``: global q/k alignment override — must match the forward
-    call (see ``flash_attention_forward``); ring/context parallelism passes
-    the per-hop shard offset here. ``dyn_pos_offset``: the TRACED variant
-    for device-dependent shard offsets (zigzag hops); requires
-    is_causal=False — see flash_attention_forward.
+    Every variant argument (segment_ids, dropout, window, softcap, ALiBi,
+    pos_offset / dyn_pos_offset) must match the forward call that produced
+    o/lse; see ``flash_attention_forward``.
 
     Returns (dQ [B,Hq,S_q,D], dK [B,Hkv,S_k,D], dV [B,Hkv,S_k,D]).
     """
     b, hq, s_q, d = q.shape
     _, hkv, s_k, _ = k.shape
     assert hq % hkv == 0
+    check_variants(is_causal, window, alibi, logit_softcap, dropout_rate,
+                   pos_offset, dyn_pos_offset)
     q_per_kv = hq // hkv
     if scale is None:
         scale = 1.0 / (d**0.5)
-    if interpret is None:
-        interpret = interpret_default()
+    interpret = resolve_interpret(interpret)
     if block_sizes is None:
         from flashattn_tpu.ops.autotune import lookup_block_sizes
 
         block_sizes = lookup_block_sizes(b, hq, hkv, s_q, s_k, d, is_causal,
                                          q.dtype)
     block_sizes = block_sizes.clamp(s_q, s_k)
-
-    assert impl in ("auto", "fused", "split"), impl
-    if impl == "auto":
-        # Benchmarking override (train_bench --bwd-impl sweeps remat x impl
-        # without threading a knob through the model layer): forces the
-        # dispatch for every 'auto' call in the process. Read at TRACE time
-        # only — the jit cache is keyed on avals/statics, not this env var,
-        # so flipping it after a same-shape call in-process is silently
-        # ignored (train_bench runs each arm in a subprocess for exactly
-        # this reason; in-process A/Bs must jax.clear_caches() per arm).
-        impl = os.environ.get("FLASHATTN_BWD_IMPL", "auto")
-        assert impl in ("auto", "fused", "split"), impl
-    if impl != "split":
-        from flashattn_tpu.ops.autotune import cached_bwd_impl
-        from flashattn_tpu.ops.flash_bwd_fused import (
-            flash_attention_backward_fused,
-            fused_backward_vmem_bytes,
-        )
-
-        bqf, bkvf = block_sizes.block_q_fused, block_sizes.block_kv_fused
-        # 128 MB = physical VMEM; the lane-padded estimate against it
-        # reproduces the measured crossover (fused compiles AND wins by
-        # ~1.37-1.41x everywhere up to S=49k at both head dims; first
-        # compile failure D=128 S=64k @147.5M-est, D=64 S=60k @132.06M
-        # real — v5e_bwd_crossover.jsonl, VERDICT r2 item #6).
-        fits = fused_backward_vmem_bytes(
-            s_q, s_k, d, bqf, bkvf
-        ) <= 128 * 1024 * 1024
-        # 'auto' honors a measured winner from the autotune cache (this
-        # code runs at trace time; the choice bakes into the executable).
-        # A measured "fused" beats the VMEM estimate: the autotune trial
-        # compiled and RAN at these exact blocks, which is ground truth —
-        # the estimate's score-tile term is pessimistic at 2048^2 tiles
-        # (Mosaic fuses the s/p/dp/ds temporaries; the estimate once
-        # silently demoted the tuned S=16k config to the 40% slower split).
-        measured = (cached_bwd_impl(b, hq, hkv, s_q, s_k, d, is_causal,
-                                    q.dtype) if impl == "auto" else None)
-        if impl == "fused" or measured == "fused" or (
-                fits and measured != "split"):
-            return flash_attention_backward_fused(
-                q, k, v, o, do, lse, is_causal=is_causal, scale=scale,
-                block_q=bqf, block_kv=bkvf, interpret=interpret, debug=debug,
-                segment_ids=segment_ids, dropout_rate=dropout_rate,
-                dropout_seed=dropout_seed, window=window,
-                logit_softcap=logit_softcap, alibi=alibi,
-                alibi_slopes=alibi_slopes, pos_offset=pos_offset,
-                dyn_pos_offset=dyn_pos_offset,
-            )
-    dynamic_offset = dyn_pos_offset is not None
-    assert not (dynamic_offset and pos_offset is not None), (
-        "pos_offset and dyn_pos_offset are mutually exclusive")
-    assert not (dynamic_offset and is_causal), (
-        "dyn_pos_offset requires is_causal=False")
-    causal_offset = (s_k - s_q) if pos_offset is None else int(pos_offset)
-    guard_zero_rows = is_causal and causal_offset < 0
-    lse4 = lse[..., None]  # [B,Hq,Sq,1] — sublane-aligned row stats
-
-    # ---- Kernel 1: dQ (+ delta persisted for kernel 2) ----
+    static_offset = (s_k - s_q) if pos_offset is None else int(pos_offset)
+    segmented = segment_ids is not None
+    if alibi and alibi_slopes is None:
+        alibi_slopes = default_alibi_slopes(hq)
+    variants = dict(
+        causal=is_causal,
+        window=window,
+        static_offset=static_offset,
+        has_dynoff=dyn_pos_offset is not None,
+        dropout_rate=dropout_rate,
+        alibi=alibi,
+        segmented=segmented,
+        softcap=float(logit_softcap or 0.0),
+        scale=scale,
+    )
     # With soft-capping only `scale` folds into the operand (tanh needs true
     # logits); the kernels apply ·log2(e) after the cap.
     pre = scale if logit_softcap else scale * LOG2E
+
+    # ---- Kernel 1: dQ (+ delta for kernel 2) ----
     bq, bkv = block_sizes.block_q_dq, block_sizes.block_kv_dq
-    q_pre = (q * pre).astype(q.dtype)
-    q_p = pad_to_block(q_pre, 2, bq)
-    o_p = pad_to_block(o, 2, bq)
-    do_p = pad_to_block(do, 2, bq)
-    lse_p = pad_to_block(lse4, 2, bq)
-    k_p = pad_to_block(k, 2, bkv)
-    v_p = pad_to_block(v, 2, bkv)
-    s_q_p, s_k_p = q_p.shape[2], k_p.shape[2]
-    num_q_blocks = s_q_p // bq
-    num_kv_blocks = s_k_p // bkv
+    q_p = pad_head_dim(pad_to_block((q * pre).astype(q.dtype), 2, bq))
+    o_p = pad_head_dim(pad_to_block(o, 2, bq))
+    do_p = pad_head_dim(pad_to_block(do, 2, bq))
+    lse_p = pad_to_block(lse, 2, bq, value=jnp.inf)
+    k_p = pad_head_dim(pad_to_block(k, 2, bkv))
+    v_p = pad_head_dim(pad_to_block(v, 2, bkv))
+    s_q_p, s_k_p, d_p = q_p.shape[2], k_p.shape[2], q_p.shape[3]
+    compiler_params = plgpu.CompilerParams(
+        num_warps=block_sizes.num_warps, num_stages=block_sizes.num_stages)
 
-    meta = build_wavefront(
-        num_q_blocks, num_kv_blocks, bq, bkv, s_k,
-        causal_offset if is_causal else None,
-        window=None if dynamic_offset else window,
-    )
-    windowed = window is not None
-    needs_mask = windowed or bool((meta[:, META_RTHRESH] != _BIG).any()
-                                  or (meta[:, META_CTHRESH] != _BIG).any())
-    segmented = segment_ids is not None
-    assert 0.0 <= dropout_rate < 1.0, dropout_rate
-    seed_prefetch = []
-    if dynamic_offset:
-        seed_prefetch.append(jnp.asarray(dyn_pos_offset, jnp.int32).reshape(1))
-    if dropout_rate > 0.0:
-        assert dropout_seed is not None, "dropout needs dropout_seed"
-        seed_prefetch.append(jnp.asarray(dropout_seed, jnp.int32).reshape(1))
-    if alibi:
-        from flashattn_tpu.ops.flash_fwd import default_alibi_slopes
+    def batch_of(i, bh):
+        return bh // hq
 
-        if alibi_slopes is None:
-            alibi_slopes = default_alibi_slopes(hq)
-        assert alibi_slopes.shape == (hq,), (alibi_slopes.shape, hq)
-        seed_prefetch = seed_prefetch + [alibi_slopes.astype(jnp.float32)]
+    def head_of(i, bh):
+        return bh % hq
 
-    def pad_segments(bq_, bkv_, s_q_p_, s_k_p_):
-        seg_q, seg_k = segment_ids
-        assert seg_q.shape == (b, s_q) and seg_k.shape == (b, s_k), (
-            seg_q.shape, seg_k.shape, (b, s_q, s_k))
-        segq_p = jnp.pad(seg_q.astype(jnp.int32),
-                         ((0, 0), (0, s_q_p_ - s_q)),
-                         constant_values=-1)[..., None]  # [B, S_q_p, 1]
-        segk_p = jnp.pad(seg_k.astype(jnp.int32),
-                         ((0, 0), (0, s_k_p_ - s_k)),
-                         constant_values=-2)[:, None, :]  # [B, 1, S_k_p]
-        return segq_p, segk_p
+    def q_map(i, bh):
+        return (batch_of(i, bh), head_of(i, bh), i, 0)
 
-    def q_index(b_i, h_i, s_i, m, *_):
-        return (b_i, h_i, m[META_QI, s_i], 0)
+    def stat_map(i, bh):
+        return (batch_of(i, bh), head_of(i, bh), i)
 
-    def kv_index(b_i, h_i, s_i, m, *_):
-        return (b_i, h_i // q_per_kv, m[META_KJ, s_i], 0)
+    def kv_map(i, bh):
+        return (batch_of(i, bh), head_of(i, bh) // q_per_kv, 0, 0)
 
-    dq_kernel = functools.partial(
-        _dq_kernel,
-        needs_mask=needs_mask,
-        guard_zero_rows=guard_zero_rows,
-        segmented=segmented,
-        windowed=windowed,
-        softcap=float(logit_softcap or 0.0),
-        alibi=alibi,
-        dropout_rate=dropout_rate,
-        hq=hq,
-        block_q=bq,
-        block_kv=bkv,
-        causal_offset=causal_offset,
-        scale=scale,
-        dynamic_offset=dynamic_offset,
-        window_size=int(window or 0),
-    )
-    in_specs = [
-        pl.BlockSpec((1, 1, bq, d), q_index),
-        pl.BlockSpec((1, 1, bkv, d), kv_index),
-        pl.BlockSpec((1, 1, bkv, d), kv_index),
-        pl.BlockSpec((1, 1, bq, d), q_index),
-        pl.BlockSpec((1, 1, bq, d), q_index),
-        pl.BlockSpec((1, 1, bq, 1), q_index),
+    inputs, in_specs = scalar_operands(hq, dyn_pos_offset, dropout_rate,
+                                       dropout_seed, alibi, alibi_slopes,
+                                       head_of)
+    inputs += [q_p, k_p, v_p, o_p, do_p, lse_p]
+    in_specs += [
+        pl.BlockSpec((None, None, bq, d_p), q_map),
+        pl.BlockSpec((None, None, s_k_p, d_p), kv_map),
+        pl.BlockSpec((None, None, s_k_p, d_p), kv_map),
+        pl.BlockSpec((None, None, bq, d_p), q_map),
+        pl.BlockSpec((None, None, bq, d_p), q_map),
+        pl.BlockSpec((None, None, bq), stat_map),
     ]
-    inputs = [q_p, k_p, v_p, o_p, do_p, lse_p]
     if segmented:
+        inputs += pad_segments(segment_ids, b, s_q, s_k, s_q_p, s_k_p)
         in_specs += [
-            pl.BlockSpec((1, bq, 1),
-                         lambda b_i, h_i, s_i, m, *_: (b_i, m[META_QI, s_i], 0)),
-            pl.BlockSpec((1, 1, bkv),
-                         lambda b_i, h_i, s_i, m, *_: (b_i, 0, m[META_KJ, s_i])),
+            pl.BlockSpec((None, bq), lambda i, bh: (batch_of(i, bh), i)),
+            pl.BlockSpec((None, s_k_p), lambda i, bh: (batch_of(i, bh), 0)),
         ]
-        inputs += list(pad_segments(bq, bkv, s_q_p, s_k_p))
     dq, delta = pl.pallas_call(
-        dq_kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1 + len(seed_prefetch),
-            grid=(b, hq, meta.shape[0]),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((1, 1, bq, d), q_index),
-                pl.BlockSpec((1, 1, bq, 1), q_index),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((bq, d), jnp.float32),
-                pltpu.VMEM((bq, 128), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((b, hq, s_q_p, d), q.dtype),
-            jax.ShapeDtypeStruct((b, hq, s_q_p, 1), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        functools.partial(_dq_kernel, hq=hq, block_q=bq, block_kv=bkv,
+                          num_kv_blocks=s_k_p // bkv, s_k=s_k, **variants),
+        grid=(s_q_p // bq, b * hq),
+        in_specs=in_specs,
+        out_specs=[pl.BlockSpec((None, None, bq, d_p), q_map),
+                   pl.BlockSpec((None, None, bq), stat_map)],
+        out_shape=[jax.ShapeDtypeStruct((b, hq, s_q_p, d_p), q.dtype),
+                   jax.ShapeDtypeStruct((b, hq, s_q_p), jnp.float32)],
+        backend="triton",
+        compiler_params=compiler_params,
         interpret=interpret,
         debug=debug,
-    )(jnp.asarray(np.ascontiguousarray(meta.T)), *seed_prefetch, *inputs)
-    dq = dq[:, :, :s_q, :] if s_q_p != s_q else dq
+        name="flash_bwd_dq",
+    )(*inputs)
+    dq = dq[:, :, :s_q, :d]
 
     # ---- Kernel 2: dK/dV, reusing kernel 1's delta ----
     bq2, bkv2 = block_sizes.block_q_dkv, block_sizes.block_kv_dkv
-    q_p2 = pad_to_block(q, 2, bq2)  # UNscaled (dK = dSᵀ·Q uses raw Q)
-    do_p2 = pad_to_block(do, 2, bq2)
-    lse_p2 = pad_to_block(lse4, 2, bq2)
-    delta_p = (
-        delta if bq2 == bq else pad_to_block(delta[:, :, :s_q], 2, bq2)
-    )
-    k_pre = (k * pre).astype(k.dtype)
-    k_p2 = pad_to_block(k_pre, 2, bkv2)
-    v_p2 = pad_to_block(v, 2, bkv2)
-    s_q_p2, s_k_p2 = q_p2.shape[2], k_p2.shape[2]
-    num_q_blocks2 = s_q_p2 // bq2
-    num_kv_blocks2 = s_k_p2 // bkv2
-    # The dKV kernel works on Sᵀ tiles (q rows in LANES): hand it the q-row
-    # stats as (1, bq) lane vectors by folding [S,1] -> [h*nq, 1, bq]
-    # host-side (one relayout outside the hot loop instead of a per-step
-    # transpose; the folded head axis keeps the block's trailing dims at
-    # (1, bq) as the Mosaic block rules require).
-    lse_t = lse_p2[..., 0].reshape(b, hq * num_q_blocks2, 1, bq2)
-    delta_t = delta_p[..., 0].reshape(b, hq * num_q_blocks2, 1, bq2)
+    s_q_p2 = pad_to_block(lse, 2, bq2).shape[2]
+    # The q heads of one GQA group are contiguous, so [B, Hq, S, D] folds
+    # to [B, Hkv, q_per_kv·S, D] for free: one program streams them all.
+    q_p2 = pad_head_dim(pad_to_block(q, 2, bq2)).reshape(
+        b, hkv, q_per_kv * s_q_p2, d_p)  # UNscaled (dK = dSᵀ·Q uses raw Q)
+    do_p2 = pad_head_dim(pad_to_block(do, 2, bq2)).reshape(
+        b, hkv, q_per_kv * s_q_p2, d_p)
+    lse_p2 = pad_to_block(lse, 2, bq2, value=jnp.inf).reshape(
+        b, hkv, q_per_kv * s_q_p2)
+    delta_p2 = pad_to_block(delta[:, :, :s_q], 2, bq2).reshape(
+        b, hkv, q_per_kv * s_q_p2)
+    k_p2 = pad_head_dim(pad_to_block((k * pre).astype(k.dtype), 2, bkv2))
+    v_p2 = pad_head_dim(pad_to_block(v, 2, bkv2))
+    s_k_p2 = k_p2.shape[2]
 
-    meta2 = build_dkv_wavefront(
-        num_q_blocks2, num_kv_blocks2, bq2, bkv2, s_q, q_per_kv,
-        causal_offset if is_causal else None,
-        window=None if dynamic_offset else window,
-    )
-    needs_mask2 = windowed or bool((meta2[:, DKV_RTHRESH] != _BIG).any()
-                                   or (meta2[:, DKV_ROWTHRESH] != _BIG).any())
+    def kv_map2(j, bhk):
+        return (bhk // hkv, bhk % hkv, j, 0)
 
-    def q_index2(b_i, h_i, s_i, m, *_):
-        return (b_i, h_i * q_per_kv + m[DKV_G, s_i], m[DKV_QI, s_i], 0)
+    def group_map(j, bhk):
+        return (bhk // hkv, bhk % hkv, 0, 0)
 
-    def kv_index2(b_i, h_i, s_i, m, *_):
-        return (b_i, h_i, m[DKV_KJ, s_i], 0)
+    def group_stat_map(j, bhk):
+        return (bhk // hkv, bhk % hkv, 0)
 
-    dkv_kernel = functools.partial(
-        _dkv_kernel,
-        needs_mask=needs_mask2,
-        guard_zero_rows=guard_zero_rows,
-        segmented=segmented,
-        windowed=windowed,
-        softcap=float(logit_softcap or 0.0),
-        alibi=alibi,
-        dropout_rate=dropout_rate,
-        hq=hq,
-        q_per_kv=q_per_kv,
-        block_q=bq2,
-        block_kv=bkv2,
-        causal_offset=causal_offset,
-        scale=scale,
-        dynamic_offset=dynamic_offset,
-        window_size=int(window or 0),
-    )
-    def qstat_index2(b_i, h_i, s_i, m, *_):
-        # [B, Hq*nq, 1, bq] with the q-head and q-block axes folded.
-        return (b_i, (h_i * q_per_kv + m[DKV_G, s_i]) * num_q_blocks2
-                + m[DKV_QI, s_i], 0, 0)
-
-    in_specs2 = [
-        pl.BlockSpec((1, 1, bq2, d), q_index2),
-        pl.BlockSpec((1, 1, bq2, d), q_index2),
-        pl.BlockSpec((1, 1, 1, bq2), qstat_index2),
-        pl.BlockSpec((1, 1, 1, bq2), qstat_index2),
-        pl.BlockSpec((1, 1, bkv2, d), kv_index2),
-        pl.BlockSpec((1, 1, bkv2, d), kv_index2),
+    inputs2, in_specs2 = scalar_operands(hq, dyn_pos_offset, dropout_rate,
+                                         dropout_seed, False, None, None)
+    if alibi:
+        # One program covers all q heads of its group: pass the whole table.
+        inputs2.append(alibi_slopes.astype(jnp.float32))
+        in_specs2.append(pl.BlockSpec((hq,), lambda j, bhk: (0,)))
+    inputs2 += [q_p2, do_p2, lse_p2, delta_p2, k_p2, v_p2]
+    in_specs2 += [
+        pl.BlockSpec((None, None, q_per_kv * s_q_p2, d_p), group_map),
+        pl.BlockSpec((None, None, q_per_kv * s_q_p2, d_p), group_map),
+        pl.BlockSpec((None, None, q_per_kv * s_q_p2), group_stat_map),
+        pl.BlockSpec((None, None, q_per_kv * s_q_p2), group_stat_map),
+        pl.BlockSpec((None, None, bkv2, d_p), kv_map2),
+        pl.BlockSpec((None, None, bkv2, d_p), kv_map2),
     ]
-    inputs2 = [q_p2, do_p2, lse_t, delta_t, k_p2, v_p2]
     if segmented:
-        # Transposed tile: q ids ride lanes [B,1,S_q], k ids sublanes
-        # [B,S_k,1] (the forward/dQ layout is the other way around).
-        segq_p, segk_p = pad_segments(bq2, bkv2, s_q_p2, s_k_p2)
+        inputs2 += pad_segments(segment_ids, b, s_q, s_k, s_q_p2, s_k_p2)
         in_specs2 += [
-            pl.BlockSpec((1, 1, bq2),
-                         lambda b_i, h_i, s_i, m, *_: (b_i, 0, m[DKV_QI, s_i])),
-            pl.BlockSpec((1, bkv2, 1),
-                         lambda b_i, h_i, s_i, m, *_: (b_i, m[DKV_KJ, s_i], 0)),
+            pl.BlockSpec((None, s_q_p2), lambda j, bhk: (bhk // hkv, 0)),
+            pl.BlockSpec((None, bkv2), lambda j, bhk: (bhk // hkv, j)),
         ]
-        inputs2 += [segq_p.transpose(0, 2, 1), segk_p.transpose(0, 2, 1)]
     dk, dv = pl.pallas_call(
-        dkv_kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1 + len(seed_prefetch),
-            grid=(b, hkv, meta2.shape[0]),
-            in_specs=in_specs2,
-            out_specs=[
-                pl.BlockSpec((1, 1, bkv2, d), kv_index2),
-                pl.BlockSpec((1, 1, bkv2, d), kv_index2),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((bkv2, d), jnp.float32),
-                pltpu.VMEM((bkv2, d), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((b, hkv, s_k_p2, d), k.dtype),
-            jax.ShapeDtypeStruct((b, hkv, s_k_p2, d), v.dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        functools.partial(_dkv_kernel, hq=hq, hkv=hkv, q_per_kv=q_per_kv,
+                          block_q=bq2, block_kv=bkv2,
+                          num_q_blocks=s_q_p2 // bq2, s_q_p=s_q_p2,
+                          **variants),
+        grid=(s_k_p2 // bkv2, b * hkv),
+        in_specs=in_specs2,
+        out_specs=[pl.BlockSpec((None, None, bkv2, d_p), kv_map2),
+                   pl.BlockSpec((None, None, bkv2, d_p), kv_map2)],
+        out_shape=[jax.ShapeDtypeStruct((b, hkv, s_k_p2, d_p), k.dtype),
+                   jax.ShapeDtypeStruct((b, hkv, s_k_p2, d_p), v.dtype)],
+        backend="triton",
+        compiler_params=compiler_params,
         interpret=interpret,
         debug=debug,
-    )(jnp.asarray(np.ascontiguousarray(meta2.T)), *seed_prefetch, *inputs2)
-    if s_k_p2 != s_k:
-        dk = dk[:, :, :s_k, :]
-        dv = dv[:, :, :s_k, :]
-    return dq, dk, dv
+        name="flash_bwd_dkv",
+    )(*inputs2)
+    return dq, dk[:, :, :s_k, :d], dv[:, :, :s_k, :d]

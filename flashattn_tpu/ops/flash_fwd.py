@@ -1,50 +1,36 @@
-"""Pallas TPU flash-attention forward kernel.
+"""Flash-attention forward kernel (Pallas, Triton route).
 
-TPU-native re-design of the reference forward kernel
-(``code/_flash_attention_kernel_optimized.py:34-129``): online-softmax
-running stats (m, l, acc) in VMEM scratch (update rules: reference
-``:106-117``), exp2 rescaling (``:79,108-109``), fp32 accumulation with a
-bf16 cast feeding the MXU (``:112-115``), causal pruning + conditional
-in-tile masking (``:82,98-103``), LSE write-back (``:126-129``).
+Re-design of the reference forward kernel
+(``code/_flash_attention_kernel_optimized.py:34-129``) in its own GPU shape:
+the grid is (q blocks, B·Hq); each program keeps one Q tile resident and
+loops over the K/V blocks its rows can see, carrying the online-softmax
+running stats (m, l, acc) through the loop (update rules: reference
+``:106-117``), in the exp2 domain (``:79,108-109``), with float32
+accumulation and the P tile cast to the V dtype for the P·V product
+(``:112-115``), and writes the LSE (``:126-129``).
 
-Idiom differences from the Triton original (this is NOT a port):
-  - **Wavefront grid**: instead of a rectangular (q_blocks × kv_blocks) grid
-    with skipped upper-triangle programs, the (q, kv) tile pairs that
-    actually need work are flattened into ONE sequential grid dimension whose
-    tile coordinates are scalar-prefetched from SMEM
-    (``pltpu.PrefetchScalarGridSpec``). Causal pruning therefore costs zero
-    grid steps — the TPU analogue of the reference's loop-bound truncation
-    (``:82``), and strictly better than masking out skipped programs.
-  - Pallas/Mosaic double-buffers HBM->VMEM tile fetches via BlockSpec index
-    maps — the TPU analogue of the reference's TensorDescriptor/TMA path
-    (``My_FlashAttention_optimized.py:29-51``).
-  - Q is pre-scaled by scale·log2(e) host-side, so the S tile lands in the
-    log2 domain with no per-element rescale pass (the reference multiplies
-    post-dot inside the hot loop, kernel ``:79``).
-  - The causal + ragged-tail mask is two threshold compares against
-    block-local iotas, with per-block thresholds prefetched from SMEM;
-    interior blocks get a +inf threshold, making the select a no-op without
-    a pipeline-stalling branch.
-  - GQA/MQA: K/V index maps fold the q-head -> kv-head mapping, which the
-    reference (H_q == H_kv only) does not support.
+The loop bounds come from `kv_block_range`: causal and sliding-window
+pruning is a shorter loop, not masked programs (the reference's loop-bound
+truncation, ``:82``), and only the blocks that straddle a mask edge pay for
+the element mask — the interior runs a mask-free loop body.
 
-Composable variants carried by the same kernel (each a static flag, zero
-cost when off): sliding window (wavefront-pruned), Gemma-style logit
-soft-capping, ALiBi (slope table scalar-prefetched; shardable with the
-heads), counter-based dropout,
-and packed-sequence segment masking (varlen).
+Composable variants (each a static flag, zero cost when off): sliding
+window, Gemma-style logit soft-capping, ALiBi (per-head slope table,
+shardable with the heads), counter-based dropout, packed-sequence segment
+masking (varlen), GQA/MQA (the K/V index map folds q head -> kv head), and a
+global q/k alignment that is either static (`pos_offset`) or traced
+(`dyn_pos_offset`, a scalar operand read inside the kernel).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from flashattn_tpu.ops.common import (
     LN2,
@@ -52,21 +38,10 @@ from flashattn_tpu.ops.common import (
     MASK_VALUE,
     BlockSizes,
     dropout_keep_mask,
-    interpret_default,
+    next_pow2,
     pad_to_block,
+    resolve_interpret,
 )
-
-# meta array columns (int32, scalar-prefetched to SMEM)
-META_QI = 0  # q-block index
-META_KJ = 1  # kv-block index
-META_FIRST = 2  # 1 if first kv step of this q row
-META_LAST = 3  # 1 if last kv step of this q row
-META_RTHRESH = 4  # causal mask threshold on (col - row), or BIG
-META_CTHRESH = 5  # ragged-tail threshold on col, or BIG
-META_LTHRESH = 6  # sliding-window lower threshold on (col - row), or -BIG
-META_COLS = 7
-
-_BIG = 2**30
 
 
 def default_alibi_slopes(num_heads: int) -> jnp.ndarray:
@@ -75,389 +50,255 @@ def default_alibi_slopes(num_heads: int) -> jnp.ndarray:
                     / num_heads)
 
 
-def build_wavefront(
-    num_q_blocks: int,
-    num_kv_blocks: int,
-    block_q: int,
-    block_kv: int,
-    s_k: int,
-    causal_offset: int | None,
-    window: int | None = None,
-) -> np.ndarray:
-    """Enumerate live (q, kv) tile pairs row-major -> meta array [L, 7].
+# ---------------------------------------------------------------------------
+# Block ranges. Shared by the forward, dQ and dK/dV kernels and exercised by
+# tests/test_wavefront.py with plain ints; inside a kernel the block index
+# and the offset may be traced int32 scalars.
 
-    causal_offset None => non-causal (all pairs live). The per-block mask
-    thresholds implement the reference's full-visible/partial/skip taxonomy
-    (Phase_3.md:273-322): partial blocks get real thresholds, full-visible
-    get +BIG, skip blocks are simply not enumerated. `window` (requires
-    causal) additionally prunes blocks left of the sliding window and sets
-    the lower (col - row) threshold for partial left-edge blocks.
+
+def _fdiv(a, b: int):
+    """floor(a / b) for a Python int or a traced int32 (b > 0 static)."""
+    if isinstance(a, int):
+        return a // b
+    return jnp.where(a >= 0, lax.div(a, b), -lax.div(b - 1 - a, b))
+
+
+def _cdiv(a, b: int):
+    return -_fdiv(-a, b)
+
+
+def _clip(x, lo, hi):
+    if all(isinstance(t, int) for t in (x, lo, hi)):
+        return max(lo, min(x, hi))
+    return jnp.minimum(jnp.maximum(x, lo), hi)
+
+
+def _split(lo, lo_full, hi_full, hi):
+    """(lo, b, c, hi): blocks [lo, b) and [c, hi) need the element mask,
+    [b, c) need none; the three ranges are disjoint and cover [lo, hi)."""
+    b = _clip(lo_full, lo, hi)
+    c = _clip(hi_full, b, hi)
+    return lo, b, c, hi
+
+
+def kv_block_range(qi, *, block_q: int, block_kv: int, num_kv_blocks: int,
+                   s_k: int, offset, causal: bool, window: int | None,
+                   segmented: bool = False):
+    """K/V blocks that q block `qi` visits, split by whether they need the
+    element mask: returns (lo, b, c, hi) as in `_split`.
+
+    Row r sees column c iff c <= r + offset (causal), c >= r + offset -
+    window + 1 (window) and c < s_k. A block is mask-free when every one of
+    the q block's rows sees every one of its columns.
     """
-    assert window is None or causal_offset is not None, (
-        "sliding window requires is_causal")
-    rows = []
-    for qi in range(num_q_blocks):
-        if causal_offset is not None:
-            max_key = (qi + 1) * block_q - 1 + causal_offset
-            if max_key < 0:
-                # Entire q row sees no keys: emit a single masked step so the
-                # output block still gets written (zeros / -inf LSE).
-                rows.append([qi, 0, 1, 1, -_BIG, _BIG, -_BIG])
-                continue
-            last = min(num_kv_blocks - 1, max_key // block_kv)
-        else:
-            last = num_kv_blocks - 1
-        first = 0
-        if window is not None:
-            # Row r sees keys >= r + causal_offset - window + 1; the block
-            # row's smallest visible key comes from its first row.
-            min_key = qi * block_q + causal_offset - window + 1
-            first = min(max(0, min_key // block_kv), last)
-        for kj in range(first, last + 1):
-            if causal_offset is not None and (
-                (kj + 1) * block_kv - 1 > qi * block_q + causal_offset
-            ):
-                rthresh = causal_offset + qi * block_q - kj * block_kv
-            else:
-                rthresh = _BIG
-            if kj == num_kv_blocks - 1 and s_k % block_kv != 0:
-                cthresh = s_k - 1 - kj * block_kv
-            else:
-                cthresh = _BIG
-            lthresh = -_BIG
-            if window is not None:
-                # Visible iff (col - row) >= lthresh in block-local coords;
-                # only the window's left-edge blocks get a real threshold.
-                lth = causal_offset - window + 1 + qi * block_q - kj * block_kv
-                if lth > -(block_q - 1):  # touches this block
-                    lthresh = lth
-            rows.append([qi, kj, int(kj == first), int(kj == last),
-                         rthresh, cthresh, lthresh])
-    meta = np.asarray(rows, dtype=np.int32)
-    return meta
-
-
-def _fwd_kernel(
-    meta_ref,  # SMEM (7, L) int32 (scalar-prefetched, column-per-step)
-    *refs,  # [dynoff,] [seed,] q, k, v, [seg_q, seg_k,] o, lse, m/l/acc scr.
-    needs_mask: bool,
-    guard_zero_rows: bool,
-    segmented: bool,
-    windowed: bool,
-    softcap: float,
-    alibi: bool,
-    dropout_rate: float,
-    hq: int,
-    block_q: int,
-    block_kv: int,
-    causal_offset: int,
-    dynamic_offset: bool = False,
-    window_size: int = 0,
-    mxu_l: bool = False,
-    acc_writethrough: bool = True,
-    unroll: int = 1,
-    single_step: bool = False,
-    q_scale: float = 0.0,
-    need_lse: bool = True,
-    stats_lanes: bool = False,
-):
-    # dynoff (1,) SMEM int32 (dynamic_offset only): TRACED q/k alignment —
-    # zigzag ring hops have device-dependent shard offsets, so the window's
-    # left edge and the ALiBi distance are computed from this scalar instead
-    # of the static causal_offset (the wavefront cannot prune dynamically;
-    # callers guarantee causal full-visibility and pass is_causal=False).
-    # seed (1,) SMEM int32 (scalar-prefetched, dropout only); q_ref
-    # (1,1,bq,D), carrying scale·log2(e) from the host prescale pass
-    # unless q_scale != 0 (then it is raw and scaled here); k/v (1,1,bkv,D);
-    # seg_q (1,bq,1) / seg_k (1,1,bkv) int32 packed-sequence ids (varlen);
-    # outputs o (1,1,bq,D), lse (1,1,bq,1); f32 scratch m/l (bq,128), acc.
-    if dynamic_offset:
-        dynoff_ref, *refs = refs
-    if dropout_rate > 0.0:
-        seed_ref, *refs = refs
-    if alibi:
-        slopes_ref, *refs = refs  # SMEM (Hq,) f32 per-head ALiBi slopes
+    row0 = qi * block_q
+    row1 = row0 + block_q - 1
+    if causal:
+        hi = _clip(_fdiv(row1 + offset, block_kv) + 1, 0, num_kv_blocks)
+        hi_full = _fdiv(row0 + offset + 1, block_kv)
+    else:
+        hi = num_kv_blocks
+        hi_full = num_kv_blocks
+    if s_k % block_kv:
+        hi_full = _clip(hi_full, 0, s_k // block_kv)
+    if window is not None:
+        lo = _clip(_fdiv(row0 + offset - (window - 1), block_kv), 0, hi)
+        lo_full = _cdiv(row1 + offset - (window - 1), block_kv)
+    else:
+        lo = 0
+        lo_full = 0
     if segmented:
-        (q_ref, k_ref, v_ref, segq_ref, segk_ref, o_ref, *rest) = refs
+        lo_full = hi
+    return _split(lo, lo_full, hi_full, hi)
+
+
+def q_block_range(kj, *, block_q: int, block_kv: int, num_q_blocks: int,
+                  offset, causal: bool, window: int | None,
+                  segmented: bool = False):
+    """Q blocks that see any column of K/V block `kj`, split like
+    `kv_block_range`. Padded q rows need no mask: the backward gives them
+    LSE = +inf, so their P is exactly 0."""
+    col0 = kj * block_kv
+    col1 = col0 + block_kv - 1
+    if causal:
+        lo = _clip(_fdiv(col0 - offset, block_q), 0, num_q_blocks)
+        lo_full = _cdiv(col1 - offset, block_q)
     else:
-        (q_ref, k_ref, v_ref, o_ref, *rest) = refs
-    if need_lse:
-        lse_ref, *scratch = rest
+        lo = 0
+        lo_full = 0
+    if window is not None:
+        hi = _clip(_fdiv(col1 + window - 1 - offset, block_q) + 1, lo,
+                   num_q_blocks)
+        hi_full = _fdiv(col0 + window - offset, block_q)
     else:
-        # Pure-forward calls (inference/serving: the custom_vjp PRIMAL, no
-        # grad taken) skip the LSE output entirely — one less output
-        # stream in the Mosaic pipeline + no finalize log work, matching
-        # jax_flash's save_residuals=False forward.
-        lse_ref, scratch = None, rest
-    if single_step:
-        # Single-step rows (S_k fits one kv fetch): every grid step is both
-        # first AND last, so the running stats never cross steps — they
-        # live in values (registers/VMEM temporaries), not scratch, and the
-        # per-row init/finalize predication disappears entirely. This is
-        # the short-S regime where the per-step boundary machinery was the
-        # measured gap vs jax's flash kernel (S=1024 causal D=128:
-        # 0.141 ms theirs vs 0.21 ms ours, benchmarks round 4).
-        m_scratch = l_scratch = acc_scratch = None
-    elif mxu_l:
-        # l rides in the PV dot's spare output lanes (ones-column in V) and
-        # accumulates inside acc — no l scratch, no VPU sum pass.
-        m_scratch, acc_scratch = scratch
-        l_scratch = None
-    else:
-        m_scratch, l_scratch, acc_scratch = scratch
-    step = pl.program_id(2)
+        hi = num_q_blocks
+        hi_full = num_q_blocks
+    if segmented:
+        lo_full = hi
+    return _split(lo, lo_full, hi_full, hi)
 
-    if not single_step:
-        # (single_step compiles the init/finalize predication out entirely —
-        # don't emit its SMEM read there.)
-        first = meta_ref[META_FIRST, step] == 1
 
-        @pl.when(first)
-        def _init():
-            # Init only the live (bq, 1) stat column. A full-scratch zeros
-            # pass (m, l, acc = ~1.5 MB VMEM writes at bq=1024, D=128) is
-            # pure per-q-row boundary overhead — the measured causal-fwd
-            # gap, since causal rows average half the steps of non-causal
-            # ones. acc init is skipped only in write-through mode (the
-            # first step writes it through, predicated below, which also
-            # skips that step's acc read + alpha multiply); long-row mode
-            # zeros it here instead.
-            if stats_lanes:
-                # Full-lane stats (see grid4 docstring): lane-replicated
-                # (bq, 128) m/l, full-register loads/stores per step —
-                # sub-lane [:, :1] slice updates lower to masked VPU ops.
-                m_scratch[...] = jnp.full(m_scratch.shape, MASK_VALUE,
-                                          jnp.float32)
-            else:
-                m_scratch[:, :1] = jnp.full((block_q, 1), MASK_VALUE,
-                                            jnp.float32)
-            if not mxu_l:
-                if stats_lanes:
-                    l_scratch[...] = jnp.zeros(l_scratch.shape, jnp.float32)
-                else:
-                    l_scratch[:, :1] = jnp.zeros((block_q, 1), jnp.float32)
-            if not acc_writethrough:
-                # Long-row mode: zero acc once per row so the step body's
-                # acc update is a single UNCONDITIONAL read-modify-write —
-                # Mosaic pipelines it across steps. (Measured: the per-step
-                # first/rest branch pair costs ~11 % fwd at S=16k/1024²
-                # (~8.5 steps/row) while winning +25 % at S=2k (~1.5); the
-                # host picks per shape below.)
-                acc_scratch[...] = jnp.zeros(acc_scratch.shape, jnp.float32)
+def visibility_mask(rows, cols, offset, *, causal: bool, window: int | None,
+                    s_k: int | None):
+    """Element mask of (rows (bq,1), cols (1,bkv)) global positions, or
+    None when nothing is masked. `s_k` masks the ragged key tail."""
+    mask = None
 
-    # Value-carried running stats for the single-step path (band-to-band
-    # across the unroll loop only; None until band 0 writes them).
-    run_m = run_l = run_acc = None
+    def both(a, b):
+        return b if a is None else a & b
 
-    q = q_ref[0, 0]  # (block_q, D)
-    if q_scale:
-        # In-kernel Q scaling (BlockSizes.scale_in_kernel): the host
-        # prescale pass is skipped, so this multiply lands the scores in
-        # the same (log2-domain) scale. Shallow-row shapes only — q is
-        # re-read per step, so deep rows pay bq*D VPU per step for it.
-        q = q * jnp.asarray(q_scale, q.dtype)
-    # KV sub-tile unroll (unroll > 1): split the fetched (block_kv, D) tile
-    # into `unroll` independent column bands and issue ALL their QK dots up
-    # front. One dot per step gives Mosaic nothing to overlap with the
-    # online-softmax VPU chain (measured ~1.2 us serialized per 1024² tile);
-    # with two bands, band u+1's dot (MXU) runs under band u's softmax (VPU),
-    # linked only through the (bq, 1) running stats. Numerically exact —
-    # identical online-softmax algebra at sub-tile granularity.
-    assert block_kv % unroll == 0, (block_kv, unroll)
-    bkv_sub = block_kv // unroll
-    # S tiles directly in the log2 domain (Q pre-scaled host-side); with
-    # soft-capping Q carries only `scale` so tanh sees TRUE logits.
-    ss = [
-        jax.lax.dot_general(
-            q, k_ref[0, 0, u * bkv_sub:(u + 1) * bkv_sub, :],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        for u in range(unroll)
-    ]
+    if causal:
+        mask = both(mask, cols <= rows + offset)
+    if window is not None:
+        mask = both(mask, cols >= rows + offset - (window - 1))
+    if s_k is not None:
+        mask = both(mask, cols < s_k)
+    return mask
 
-    for u in range(unroll):
-        s = ss[u]
-        coff = u * bkv_sub  # sub-tile column offset inside the fetched tile
+
+def run_blocks(bounds, body, carry):
+    """fori_loop `body(j, carry, masked)` over the (lo, b, c, hi) split."""
+    lo, b, c, hi = bounds
+    carry = lax.fori_loop(lo, b, functools.partial(body, masked=True), carry)
+    carry = lax.fori_loop(b, c, functools.partial(body, masked=False), carry)
+    return lax.fori_loop(c, hi, functools.partial(body, masked=True), carry)
+
+
+# ---------------------------------------------------------------------------
+
+
+def _fwd_kernel(*refs, hq, block_q, block_kv, num_kv_blocks, s_k, causal,
+                window, static_offset, has_dynoff, dropout_rate, alibi,
+                segmented, softcap, need_lse):
+    refs = list(refs)
+    dynoff_ref = refs.pop(0) if has_dynoff else None
+    seed_ref = refs.pop(0) if dropout_rate > 0.0 else None
+    slope_ref = refs.pop(0) if alibi else None
+    q_ref, k_ref, v_ref = refs[:3]
+    del refs[:3]
+    segq_ref, segk_ref = (refs[:2] if segmented else (None, None))
+    if segmented:
+        del refs[:2]
+    o_ref = refs[0]
+    lse_ref = refs[1] if need_lse else None
+
+    qi = pl.program_id(0)
+    bh = pl.program_id(1)
+    offset = dynoff_ref[...] if has_dynoff else static_offset
+    q = q_ref[...]  # (bq, D), carries scale·log2(e) (scale only w/ softcap)
+    rows = qi * block_q + jnp.arange(block_q, dtype=jnp.int32)[:, None]
+    segq = segq_ref[...][:, None] if segmented else None
+    tail = s_k if s_k % block_kv else None
+
+    def body(j, carry, masked):
+        acc, m, l = carry
+        kv_slice = pl.ds(j * block_kv, block_kv)
+        s = pl.dot(q, k_ref[kv_slice, :], trans_b=True)  # (bq, bkv) f32
         if softcap > 0.0:
             s = jnp.tanh(s * (1.0 / softcap)) * (softcap * LOG2E)
+        cols = j * block_kv + jnp.arange(block_kv, dtype=jnp.int32)[None, :]
         if alibi:
-            # ALiBi: score += slope_h * (k_pos - q_pos) (<= 0 for the past).
-            # Slopes arrive as a scalar-prefetched (Hq,) array — indexable by
-            # the LOCAL head grid index even under head sharding (the caller
-            # shards the global slope table with the heads), and overridable
-            # with model-custom slopes.
-            slope = slopes_ref[pl.program_id(1)]
-            aoff = dynoff_ref[0] if dynamic_offset else causal_offset
-            r1a = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-            c1a = jax.lax.broadcasted_iota(jnp.int32, (1, bkv_sub), 1)
-            dist = ((c1a + meta_ref[META_KJ, step] * block_kv + coff)
-                    - (r1a + meta_ref[META_QI, step] * block_q)
-                    - aoff).astype(jnp.float32)
-            s = s + (slope * LOG2E) * dist
-
+            dist = (cols - rows - offset).astype(jnp.float32)
+            s = s + (slope_ref[...] * LOG2E) * dist
         mask = None
-        if needs_mask:
-            # (cols - rows) <= rthresh AND cols <= cthresh collapses to a
-            # single per-row column limit: cols <= min(rows + rthresh,
-            # cthresh). One broadcasted (bq,bkv) compare instead of two
-            # full-tile iotas + two compares (the thresholds' +BIG encoding
-            # for interior blocks, reference taxonomy Phase_3.md:273-322,
-            # still short-circuits to all-true). Sub-tile bands shift the
-            # (block-local) column thresholds by their offset.
-            rows1 = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-            limit = jnp.minimum(rows1 + (meta_ref[META_RTHRESH, step] - coff),
-                                meta_ref[META_CTHRESH, step] - coff)  # (bq,1)
-            cols1 = jax.lax.broadcasted_iota(jnp.int32, (1, bkv_sub), 1)
-            mask = cols1 <= limit  # (bq, bkv_sub)
-            if windowed and dynamic_offset:
-                # Traced alignment: compute the left-edge threshold in-kernel
-                # (static builds ship it in META_LTHRESH).
-                lth = (dynoff_ref[0] - (window_size - 1)
-                       + meta_ref[META_QI, step] * block_q
-                       - meta_ref[META_KJ, step] * block_kv - coff)
-                mask = mask & (cols1 >= rows1 + lth)
-            elif windowed:
-                # Sliding window: left edge is a per-row LOWER column bound.
-                mask = mask & (
-                    cols1 >= rows1 + (meta_ref[META_LTHRESH, step] - coff))
-        if segmented:
-            # (bq,1)==(1,bkv_sub) -> (bq,bkv_sub)
-            seg_mask = segq_ref[0] == segk_ref[0][:, coff:coff + bkv_sub]
-            mask = seg_mask if mask is None else (mask & seg_mask)
+        if masked:
+            mask = visibility_mask(rows, cols, offset, causal=causal,
+                                   window=window, s_k=tail)
+            if segmented:
+                seg = segq == segk_ref[kv_slice][None, :]
+                mask = seg if mask is None else mask & seg
         if mask is not None:
             s = jnp.where(mask, s, MASK_VALUE)
-
-        m_cur = jnp.max(s, axis=1, keepdims=True)
-        if single_step:
-            m_prev = run_m  # None on band 0: no prior stats to merge
-            m_new = m_cur if m_prev is None else jnp.maximum(m_prev, m_cur)
-            alpha = None if m_prev is None else jnp.exp2(m_prev - m_new)
-        else:
-            m_prev = (m_scratch[...] if stats_lanes
-                      else m_scratch[:, :1])  # (bq, 128) or (bq, 1)
-            m_new = jnp.maximum(m_prev, m_cur)
-            alpha = jnp.exp2(m_prev - m_new)
-        if not single_step and stats_lanes and bkv_sub != 128:
-            p = jnp.exp2(s - jnp.tile(m_new, (1, bkv_sub // 128)))
-        else:
-            p = jnp.exp2(s - m_new)  # (block_q, bkv_sub) f32
-        if segmented or windowed:
-            # Rows with no visible keys in this tile (segment absent, or the
-            # sliding window starts in a later block) would get
-            # p = exp2(s - m) with s = m = MASK_VALUE -> 1; zero them exactly.
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.exp2(s - m_new[:, None])
+        if mask is not None:
+            # A row with no visible key in this block would get
+            # p = exp2(MASK - MASK) = 1; zero it exactly.
             p = jnp.where(mask, p, 0.0)
-        if guard_zero_rows:
-            # Zero-key rows (causal cross-attn, S_q > S_k): all-masked rows
-            # would get p = exp2(0) = 1; force 0 (convention: O = 0,
-            # LSE = -inf).
-            riota = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-            valid = (riota
-                     + (meta_ref[META_QI, step] * block_q + causal_offset)
-                     >= 0)
-            p = jnp.where(valid, p, 0.0)
-        if single_step:
-            if not mxu_l:
-                l_cur = jnp.sum(p, axis=1, keepdims=True)
-                run_l = l_cur if run_l is None else alpha * run_l + l_cur
-            run_m = m_new
-        else:
-            if not mxu_l:
-                if stats_lanes:
-                    l_scratch[...] = (alpha * l_scratch[...]
-                                      + jnp.sum(p, axis=1, keepdims=True))
-                else:
-                    l_scratch[:, :1] = (
-                        alpha * l_scratch[:, :1]
-                        + jnp.sum(p, axis=1, keepdims=True))
-            if stats_lanes:
-                m_scratch[...] = m_new
-            else:
-                m_scratch[:, :1] = m_new
-
+        l = alpha * l + jnp.sum(p, axis=1)
         if dropout_rate > 0.0:
-            # Dropout on the UNnormalized P feeding the PV dot only: l keeps
-            # the clean softmax normalizer, so LSE (and the backward's P
-            # rebuild) are dropout-free (reference deferred design
-            # Phase_6.md:54-114).
-            rows_g = (meta_ref[META_QI, step] * block_q
-                      + jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0))
-            cols_g = (meta_ref[META_KJ, step] * block_kv + coff
-                      + jax.lax.broadcasted_iota(jnp.int32, (1, bkv_sub), 1))
-            bh = pl.program_id(0) * hq + pl.program_id(1)
-            keep = dropout_keep_mask(seed_ref[0], bh, rows_g, cols_g,
+            # Dropout on the unnormalized P feeding the PV product only: l
+            # keeps the clean normalizer, so LSE and the backward's P
+            # rebuild are dropout-free (Phase_6.md:54-114).
+            keep = dropout_keep_mask(seed_ref[...], bh, rows, cols,
                                      dropout_rate)
-            p_v = jnp.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-        else:
-            p_v = p
+            p = jnp.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+        v = v_ref[kv_slice, :]
+        acc = acc * alpha[:, None] + pl.dot(p.astype(v.dtype), v)
+        return acc, m_new, l
 
-        v = v_ref[0, 0, coff:coff + bkv_sub, :]  # (bkv_sub, D)
-        pv = jax.lax.dot_general(
-            p_v.astype(v.dtype),  # bf16 into the MXU (reference :112-115)
-            v,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
+    d = q_ref.shape[-1]
+    carry = (jnp.zeros((block_q, d), jnp.float32),
+             jnp.full((block_q,), MASK_VALUE, jnp.float32),
+             jnp.zeros((block_q,), jnp.float32))
+    bounds = kv_block_range(
+        qi, block_q=block_q, block_kv=block_kv, num_kv_blocks=num_kv_blocks,
+        s_k=s_k, offset=offset, causal=causal, window=window,
+        segmented=segmented)
+    acc, m, l = run_blocks(bounds, body, carry)
+    empty = l == 0.0  # rows with no visible key: O = 0, LSE = -inf
+    l_safe = jnp.where(empty, 1.0, l)
+    o_ref[...] = (acc / l_safe[:, None]).astype(o_ref.dtype)
+    if need_lse:
+        lse_ref[...] = jnp.where(empty, -jnp.inf,
+                                 (m + jnp.log2(l_safe)) * LN2)
 
-        if single_step:
-            run_acc = pv if run_acc is None else run_acc * alpha + pv
-        else:
-            if stats_lanes:
-                # acc width is always a 128 multiple (d%128==0, or mxu_l
-                # pads to d_ext): tile the lane-replicated alpha across it.
-                w = acc_scratch.shape[-1]
-                alpha_d = alpha if w == 128 else jnp.tile(alpha,
-                                                          (1, w // 128))
-            else:
-                alpha_d = alpha
-            if acc_writethrough and u == 0:
-                # Short-row mode: the row's first sub-tile writes through
-                # (skips that step's acc read + alpha multiply AND the
-                # per-row zeros pass); later sub-tiles always RMW.
-                @pl.when(first)
-                def _acc_write_through():
-                    acc_scratch[...] = pv
 
-                @pl.when(jnp.logical_not(first))
-                def _acc_rmw():
-                    acc_scratch[...] = acc_scratch[...] * alpha_d + pv
-            else:
-                acc_scratch[...] = acc_scratch[...] * alpha_d + pv
+def pad_head_dim(x: jnp.ndarray) -> jnp.ndarray:
+    """Zero-pad D to a power of two >= 16 (Triton tiles; zeros change no
+    dot product)."""
+    d = x.shape[-1]
+    d_p = max(16, next_pow2(d))
+    if d_p == d:
+        return x
+    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, d_p - d)])
 
-    def _write_out(m, l, acc):
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc / l_safe).astype(o_ref.dtype)
-        if not need_lse:
-            return
-        # LSE in natural-log units: ln Σ exp(s·scale) = (m + log2 l)·ln2.
-        # Stored [.., S, 1] so row stats stay sublane-aligned in VMEM.
-        lse = (m + jnp.log2(l_safe)) * LN2
-        if guard_zero_rows or segmented or windowed:
-            # windowed: a sharded (pos_offset) call can have rows whose whole
-            # window lies outside this shard — they must merge as no-ops.
-            lse = jnp.where(l == 0.0, -jnp.inf, lse)
-        lse_ref[0, 0] = lse
 
-    d_out = o_ref.shape[-1]
-    if single_step:
-        # Every step is a whole row: write out unconditionally from the
-        # value-carried stats (no scratch, no META_LAST predication).
-        if mxu_l:
-            _write_out(run_m, run_acc[:, d_out:d_out + 1],
-                       run_acc[:, :d_out])
-        else:
-            _write_out(run_m, run_l, run_acc)
-    else:
-        @pl.when(meta_ref[META_LAST, step] == 1)
-        def _finalize():
-            m = m_scratch[:, :1]
-            if mxu_l:
-                # l accumulated in the ones-column lane of the PV dot (it
-                # obeys the exact same alpha recurrence as the numerator).
-                _write_out(m, acc_scratch[:, d_out:d_out + 1],
-                           acc_scratch[:, :d_out])
-            else:
-                _write_out(m, l_scratch[:, :1], acc_scratch[...])
+def scalar_operands(hq, dyn_pos_offset, dropout_rate, dropout_seed, alibi,
+                    alibi_slopes, head_of):
+    """(arrays, BlockSpecs) for the per-call scalars read in the kernels:
+    the traced offset, the dropout seed, and the ALiBi slope of the
+    program's q head (`head_of` maps grid indices to it)."""
+    arrays, specs = [], []
+    if dyn_pos_offset is not None:
+        arrays.append(jnp.asarray(dyn_pos_offset, jnp.int32).reshape(1))
+        specs.append(pl.BlockSpec((None,), lambda *_: (0,)))
+    if dropout_rate > 0.0:
+        assert dropout_seed is not None, "dropout needs dropout_seed"
+        arrays.append(jnp.asarray(dropout_seed, jnp.int32).reshape(1))
+        specs.append(pl.BlockSpec((None,), lambda *_: (0,)))
+    if alibi:
+        if alibi_slopes is None:
+            alibi_slopes = default_alibi_slopes(hq)
+        assert alibi_slopes.shape == (hq,), (alibi_slopes.shape, hq)
+        arrays.append(alibi_slopes.astype(jnp.float32))
+        specs.append(pl.BlockSpec((None,), lambda *g: (head_of(*g),)))
+    return arrays, specs
+
+
+def pad_segments(segment_ids, b, s_q, s_k, s_q_p, s_k_p):
+    """Pad q ids with -1 and k ids with -2: padding matches nothing."""
+    seg_q, seg_k = segment_ids
+    assert seg_q.shape == (b, s_q) and seg_k.shape == (b, s_k), (
+        seg_q.shape, seg_k.shape, (b, s_q, s_k))
+    segq = jnp.pad(seg_q.astype(jnp.int32), ((0, 0), (0, s_q_p - s_q)),
+                   constant_values=-1)
+    segk = jnp.pad(seg_k.astype(jnp.int32), ((0, 0), (0, s_k_p - s_k)),
+                   constant_values=-2)
+    return segq, segk
+
+
+def check_variants(is_causal, window, alibi, logit_softcap, dropout_rate,
+                   pos_offset, dyn_pos_offset):
+    assert not (alibi and logit_softcap), "alibi + softcap: pick one"
+    assert 0.0 <= dropout_rate < 1.0, dropout_rate
+    assert pos_offset is None or dyn_pos_offset is None, (
+        "pos_offset and dyn_pos_offset are mutually exclusive")
+    assert window is None or window >= 1, window
+    assert window is None or is_causal or dyn_pos_offset is not None, (
+        "window requires is_causal (or a traced dyn_pos_offset whose caller "
+        "guarantees causal visibility)")
 
 
 @functools.partial(
@@ -486,11 +327,9 @@ def flash_attention_forward(
     dyn_pos_offset: jnp.ndarray | None = None,
     need_lse: bool = True,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused flash-attention forward.
-
-    TPU analogue of the reference launcher
-    (``My_FlashAttention_optimized.py:14-60``): allocates O in the input
-    dtype and LSE in fp32; grid = (B, H, live_tile_pairs).
+    """Fused flash-attention forward (the reference launcher,
+    ``My_FlashAttention_optimized.py:14-60``): O in the input dtype, LSE in
+    float32.
 
     Args:
       q: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D] with Hkv | Hq (GQA).
@@ -502,35 +341,31 @@ def flash_attention_forward(
         causal visibility is ``col <= row + pos_offset``, the window's left
         edge is ``col >= row + pos_offset - window + 1``, and the ALiBi
         distance is ``col - row - pos_offset``. Defaults to ``s_k - s_q``
-        (bottom-right alignment, the dense convention). Ring/context
-        parallelism passes the per-hop shard offset here so every
-        position-dependent feature stays globally exact on sharded calls
-        (the same tile-merge algebra as ``Phase_0.md:123-188``, applied
-        across chips).
-      dyn_pos_offset: TRACED q/k alignment (int32 scalar) for shard offsets
-        that are device-dependent under shard_map (zigzag ring hops). Only
-        the window's left edge and the ALiBi distance use it; the causal
-        wavefront cannot prune on a traced value, so the caller must
-        guarantee every pair is causally visible and pass is_causal=False.
-        Mutually exclusive with pos_offset.
+        (bottom-right alignment). Ring/context parallelism passes the
+        per-hop shard offset here so every position-dependent feature stays
+        globally exact on sharded calls.
+      dyn_pos_offset: the same alignment as a TRACED int32 scalar, for shard
+        offsets that depend on the device under shard_map (zigzag ring
+        hops). Mutually exclusive with pos_offset. Loop bounds follow it, so
+        it may be combined with is_causal and window.
+      need_lse: False (inference, the custom_vjp primal) drops the LSE
+        output; None is returned in its place.
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] fp32, natural log;
-       rows with no visible keys get O = 0, LSE = -inf). With
-      need_lse=False (pure-forward/inference calls, the custom_vjp PRIMAL)
-      the LSE output stream is compiled out and None is returned in its
-      place.
+       rows with no visible keys get O = 0, LSE = -inf).
     """
     b, hq, s_q, d = q.shape
     _, hkv, s_k, dk = k.shape
     assert v.shape == k.shape, (v.shape, k.shape)
     assert dk == d, "q/k head_dim mismatch"
     assert hq % hkv == 0, f"Hq={hq} must be a multiple of Hkv={hkv}"
+    check_variants(is_causal, window, alibi, logit_softcap, dropout_rate,
+                   pos_offset, dyn_pos_offset)
     q_per_kv = hq // hkv
     if scale is None:
         scale = 1.0 / (d**0.5)
-    if interpret is None:
-        interpret = interpret_default()
+    interpret = resolve_interpret(interpret)
     if block_sizes is None:
         from flashattn_tpu.ops.autotune import lookup_block_sizes
 
@@ -539,283 +374,83 @@ def flash_attention_forward(
     block_sizes = block_sizes.clamp(s_q, s_k)
     bq, bkv = block_sizes.block_q, block_sizes.block_kv
 
-    # Forward grid-shape dispatch: the q-major kernel (program per q tile,
-    # VMEM-resident K/V, in-kernel kv loop — flash_fwd_qmajor.py) vs the
-    # wavefront grid below. BlockSizes.fwd_impl carries autotuned winners;
-    # FLASHATTN_FWD_IMPL overrides for subprocess A/Bs. Unsupported
-    # feature/residency combinations silently keep the wavefront (a tuned
-    # "qmajor" winner must not break windows/dropout/... calls at the same
-    # key).
-    # (A third grid shape, "qmajor" — program-per-q-tile with an in-kernel
-    # fori_loop kv stream over VMEM-resident K/V — was built and deleted in
-    # round 5: it lost 7-20 % to the wavefront at every MHA point and also
-    # lost the GQA model shapes to both other grids. A/Bs on record in
-    # benchmarks/results/v5e_qmajor_sweep.jsonl; Mosaic's grid pipeline
-    # beats an in-kernel dynamic loop.)
-    from flashattn_tpu.ops.flash_fwd_grid4 import (
-        flash_attention_forward_grid4,
-        grid4_auto,
-        grid4_supported,
-    )
-
-    impl = os.environ.get("FLASHATTN_FWD_IMPL", block_sizes.fwd_impl)
-    _off = (s_k - s_q) if pos_offset is None else int(pos_offset)
-    _plain = grid4_supported(
-        segmented=segment_ids is not None,
-        windowed=window is not None,
-        softcap=bool(logit_softcap),
-        alibi=alibi,
-        dropout=dropout_rate > 0.0,
-        dynamic_offset=dyn_pos_offset is not None,
-    )
-    if impl == "auto" and _plain:
-        impl = grid4_auto(s_q, s_k, d, is_causal,
-                          block_sizes.block_q, block_sizes.block_kv)
-    if impl == "grid4" and _plain:
-        return flash_attention_forward_grid4(
-            q, k, v, is_causal, scale, block_sizes, interpret, debug, _off,
-            need_lse=need_lse)
-    # (A fourth grid shape, "pair" — complementary q rows i and n-1-i
-    # fused into one fully-live grid row, so causal pruning costs neither
-    # dead programs (grid4's depth weakness) nor meta loads (the
-    # wavefront's) — was built, oracle-verified, and deleted in round 5:
-    # it lost EVERY shipped cell (best arm −8-10 % vs the wavefront at
-    # S=4096/8192, −6 % vs grid4 at S=2048; v5e_pair_sweep.jsonl). Key
-    # negative attribution: with both suspected overheads eliminated it
-    # still lost, so the remaining jax_flash mid-S lead is per-program
-    # pipeline cost of multi-row-visiting programs, not grid shape.)
-
-    # Q carries scale·log2(e) so S = Q̃·Kᵀ lands directly in the log2
-    # domain, saving a full VPU pass over every S² tile in the hot loop.
-    # With soft-capping the tanh needs TRUE logits, so only `scale` folds
-    # and the kernel applies ·log2(e) after the cap. WHERE the factor is
-    # applied (host prescale pass vs in-kernel tile multiply) is decided
-    # below once the wavefront depth is known (BlockSizes.scale_in_kernel).
-    from flashattn_tpu.ops.common import round_up
-
+    # Q carries scale·log2(e) so S = Q̃·Kᵀ lands in the log2 domain; with
+    # soft-capping the tanh needs true logits, so only `scale` folds and the
+    # kernel applies ·log2(e) after the cap.
     pre = scale if logit_softcap else scale * LOG2E
-    k_p = pad_to_block(k, 2, bkv)
-    v_p = pad_to_block(v, 2, bkv)
-    s_q_p, s_k_p = round_up(s_q, bq), k_p.shape[2]
+    q_p = pad_head_dim(pad_to_block((q * pre).astype(q.dtype), 2, bq))
+    k_p = pad_head_dim(pad_to_block(k, 2, bkv))
+    v_p = pad_head_dim(pad_to_block(v, 2, bkv))
+    s_q_p, s_k_p, d_p = q_p.shape[2], k_p.shape[2], q_p.shape[3]
 
-    # Sub-128 head dims waste MXU output lanes on the PV dot anyway — spend
-    # one of them on the softmax row-sum: append a ones-column to V at lane
-    # d (zero-fill to the lane boundary) and let l accumulate inside acc,
-    # deleting the full-tile VPU sum pass and the l recurrence per step.
-    # Disabled under dropout (PV sees the dropped P; l must stay clean).
-    mxu_l = (d % 128 != 0) and dropout_rate == 0.0
-    d_ext = d
-    if mxu_l:
-        from flashattn_tpu.ops.common import round_up
+    def batch_of(i, bh):
+        return bh // hq
 
-        d_ext = round_up(d + 1, 128)
-        ones = jnp.ones(v_p.shape[:3] + (1,), v_p.dtype)
-        zeros = jnp.zeros(v_p.shape[:3] + (d_ext - d - 1,), v_p.dtype)
-        v_p = jnp.concatenate([v_p, ones, zeros], axis=-1)
-    num_q_blocks = s_q_p // bq
-    num_kv_blocks = s_k_p // bkv
+    def head_of(i, bh):
+        return bh % hq
 
-    dynamic_offset = dyn_pos_offset is not None
-    assert not (dynamic_offset and pos_offset is not None), (
-        "pos_offset and dyn_pos_offset are mutually exclusive")
-    assert not (dynamic_offset and is_causal), (
-        "dyn_pos_offset requires is_causal=False (the wavefront cannot "
-        "prune on a traced alignment; see docstring)")
-    causal_offset = (s_k - s_q) if pos_offset is None else int(pos_offset)
-    assert window is None or dynamic_offset or (is_causal and window >= 1), (
-        "window requires is_causal and window >= 1")
-    meta = build_wavefront(
-        num_q_blocks, num_kv_blocks, bq, bkv, s_k,
-        causal_offset if is_causal else None,
-        window=None if dynamic_offset else window,
-    )
-    num_steps = meta.shape[0]
-    windowed = window is not None
-    needs_mask = dynamic_offset and windowed or bool(
-        (meta[:, META_RTHRESH] != _BIG).any()
-        or (meta[:, META_CTHRESH] != _BIG).any()
-        or (meta[:, META_LTHRESH] != -_BIG).any())
-    guard_zero_rows = is_causal and causal_offset < 0
+    inputs, in_specs = scalar_operands(hq, dyn_pos_offset, dropout_rate,
+                                       dropout_seed, alibi, alibi_slopes,
+                                       head_of)
+    inputs += [q_p, k_p, v_p]
+    in_specs += [
+        pl.BlockSpec((None, None, bq, d_p),
+                     lambda i, bh: (batch_of(i, bh), head_of(i, bh), i, 0)),
+        pl.BlockSpec((None, None, s_k_p, d_p),
+                     lambda i, bh: (batch_of(i, bh),
+                                    head_of(i, bh) // q_per_kv, 0, 0)),
+        pl.BlockSpec((None, None, s_k_p, d_p),
+                     lambda i, bh: (batch_of(i, bh),
+                                    head_of(i, bh) // q_per_kv, 0, 0)),
+    ]
     segmented = segment_ids is not None
-    assert 0.0 <= dropout_rate < 1.0, dropout_rate
-
-    # (pred_mask, a predicated-masking A/B candidate, was deleted in round
-    # 4: its round-3 "no win" reading was a re-measured default kernel —
-    # the env flip never re-traced — and the honest A/B could not finish a
-    # Mosaic compile inside 30 min, benchmarks/results/v5e_fwd_ab.jsonl.)
-
-    # KV sub-tile unroll (see _fwd_kernel): a first-class tuning knob
-    # (BlockSizes.unroll_kv, autotuned + shipped winners);
-    # FLASHATTN_FWD_UNROLL overrides for A/B sweeps. Bands must stay
-    # MXU-lane-aligned (>= 128 columns each).
-    unroll = int(os.environ.get("FLASHATTN_FWD_UNROLL",
-                                str(block_sizes.unroll_kv)))
-    if bkv % unroll != 0 or (bkv // unroll) % 128 != 0:
-        unroll = 1
-
-    # Single-kv-block rows: every wavefront step is a whole q-row, so the
-    # kernel carries its stats in values and skips the init/finalize
-    # predication + scratch traffic entirely (see _fwd_kernel). Trace-time
-    # static; FLASHATTN_SINGLE_STEP ∈ {0,1} is a bench-only A/B override
-    # (subprocess-isolated — the jit cache is not keyed on env).
-    env_ss = os.environ.get("FLASHATTN_SINGLE_STEP")
-    single_step = (num_kv_blocks == 1 if env_ss is None else env_ss == "1")
-    assert not single_step or num_kv_blocks == 1, (
-        "FLASHATTN_SINGLE_STEP=1 requires S_k to fit one kv block")
-
-    # Q scale placement (see BlockSizes.scale_in_kernel). Measured v5e A/B
-    # (looped timing, benchmarks/results/v5e_sik_ab.jsonl): in-kernel
-    # scaling LOSES on shallow rows (S=512 32.5 vs 35.0 TF, S=1024 38.3 vs
-    # 54.7 — the single-step region) and WINS at depth (S=4096 87.9 vs
-    # 82.4, S=8192 112.4 vs 108.0, S=16384 126.8 vs 123.7; tie at 2048) —
-    # the exact opposite of the bytes-vs-VPU prior: at depth the per-step
-    # tile multiply hides under the MXU pipeline while the prescale pass
-    # is pure serial HBM time. Auto picks by measured row depth.
-    env_sik = os.environ.get("FLASHATTN_SCALE_IN_KERNEL")
-    if env_sik is not None:
-        scale_in_kernel = env_sik == "1"
-    elif block_sizes.scale_in_kernel is not None:
-        scale_in_kernel = block_sizes.scale_in_kernel
-    else:
-        scale_in_kernel = (not single_step
-                           and num_steps > 2 * num_q_blocks)
-    if scale_in_kernel:
-        q_p = pad_to_block(q, 2, bq)
-    else:
-        q_p = pad_to_block((q * pre).astype(q.dtype), 2, bq)
-
-    # Full-lane stats layout (see BlockSizes.stats_lanes): needs 128-lane
-    # bands; single_step carries stats in values instead.
-    env_sl = os.environ.get("FLASHATTN_STATS_LANES")
-    if env_sl is not None:
-        stats_lanes = env_sl == "1"
-    elif block_sizes.stats_lanes is not None:
-        stats_lanes = block_sizes.stats_lanes
-    else:
-        stats_lanes = False
-    if single_step or (bkv // unroll) % 128 != 0:
-        stats_lanes = False
+    if segmented:
+        inputs += pad_segments(segment_ids, b, s_q, s_k, s_q_p, s_k_p)
+        in_specs += [
+            pl.BlockSpec((None, bq), lambda i, bh: (batch_of(i, bh), i)),
+            pl.BlockSpec((None, s_k_p), lambda i, bh: (batch_of(i, bh), 0)),
+        ]
+    out_shape = [jax.ShapeDtypeStruct((b, hq, s_q_p, d_p), q.dtype)]
+    out_specs = [pl.BlockSpec(
+        (None, None, bq, d_p),
+        lambda i, bh: (batch_of(i, bh), head_of(i, bh), i, 0))]
+    if need_lse:
+        out_shape.append(jax.ShapeDtypeStruct((b, hq, s_q_p), jnp.float32))
+        out_specs.append(pl.BlockSpec(
+            (None, None, bq),
+            lambda i, bh: (batch_of(i, bh), head_of(i, bh), i)))
 
     kernel = functools.partial(
         _fwd_kernel,
-        unroll=unroll,
-        single_step=single_step,
-        stats_lanes=stats_lanes,
-        q_scale=(pre if scale_in_kernel else 0.0),
-        need_lse=need_lse,
-        needs_mask=needs_mask or windowed,
-        guard_zero_rows=guard_zero_rows,
-        segmented=segmented,
-        windowed=windowed,
-        softcap=float(logit_softcap or 0.0),
-        alibi=alibi,
-        dropout_rate=dropout_rate,
         hq=hq,
         block_q=bq,
         block_kv=bkv,
-        causal_offset=causal_offset,
-        dynamic_offset=dynamic_offset,
-        window_size=int(window or 0),
-        mxu_l=mxu_l,
-        # Accumulator strategy, picked per shape from the wavefront: rows
-        # averaging ≤ 2 kv steps are boundary-dominated (predicated
-        # write-through wins +25 % @S=2k causal); longer rows want the
-        # unconditional RMW Mosaic can pipeline (zeroing once per row costs
-        # ~11 % less than the branch pair @S=16k). FLASHATTN_ACC_WRITETHROUGH
-        # ∈ {0,1} overrides for A/B.
-        acc_writethrough=(
-            num_steps <= 2 * num_q_blocks
-            if os.environ.get("FLASHATTN_ACC_WRITETHROUGH") is None
-            else os.environ["FLASHATTN_ACC_WRITETHROUGH"] == "1"),
-    )
-    assert not (alibi and logit_softcap), "alibi + softcap: pick one"
-
-    def q_index(b_i, h_i, s_i, meta_ref, *_):
-        return (b_i, h_i, meta_ref[META_QI, s_i], 0)
-
-    def kv_index(b_i, h_i, s_i, meta_ref, *_):
-        return (b_i, h_i // q_per_kv, meta_ref[META_KJ, s_i], 0)
-
-    def lse_index(b_i, h_i, s_i, meta_ref, *_):
-        return (b_i, h_i, meta_ref[META_QI, s_i], 0)
-
-    # Transposed (7, L): SMEM pads the LAST dim to 128 lanes, so the step
-    # axis must be last or long-sequence wavefronts overflow the ~1MB SMEM
-    # (row-major [L, 7] costs 512B/step; this costs 28B/step).
-    prefetch = [jnp.asarray(np.ascontiguousarray(meta.T))]
-    if dynamic_offset:
-        prefetch.append(jnp.asarray(dyn_pos_offset, jnp.int32).reshape(1))
-    if dropout_rate > 0.0:
-        assert dropout_seed is not None, "dropout needs dropout_seed"
-        prefetch.append(jnp.asarray(dropout_seed, jnp.int32).reshape(1))
-    if alibi:
-        if alibi_slopes is None:
-            alibi_slopes = default_alibi_slopes(hq)
-        assert alibi_slopes.shape == (hq,), (alibi_slopes.shape, hq)
-        prefetch.append(alibi_slopes.astype(jnp.float32))
-
-    in_specs = [
-        pl.BlockSpec((1, 1, bq, d), q_index),
-        pl.BlockSpec((1, 1, bkv, d), kv_index),
-        pl.BlockSpec((1, 1, bkv, d_ext), kv_index),
-    ]
-    inputs = [q_p, k_p, v_p]
-    if segmented:
-        seg_q, seg_k = segment_ids
-        assert seg_q.shape == (b, s_q) and seg_k.shape == (b, s_k), (
-            seg_q.shape, seg_k.shape, (b, s_q, s_k))
-        # Pad q rows with -1 and k cols with -2: padding never matches
-        # anything, so ragged tails are masked with zero extra logic.
-        segq_p = jnp.pad(seg_q.astype(jnp.int32), ((0, 0), (0, s_q_p - s_q)),
-                         constant_values=-1)[..., None]  # [B, S_q_p, 1]
-        segk_p = jnp.pad(seg_k.astype(jnp.int32), ((0, 0), (0, s_k_p - s_k)),
-                         constant_values=-2)[:, None, :]  # [B, 1, S_k_p]
-        in_specs += [
-            pl.BlockSpec((1, bq, 1),
-                         lambda b_i, h_i, s_i, m, *_: (b_i, m[META_QI, s_i], 0)),
-            pl.BlockSpec((1, 1, bkv),
-                         lambda b_i, h_i, s_i, m, *_: (b_i, 0, m[META_KJ, s_i])),
-        ]
-        inputs += [segq_p, segk_p]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(prefetch),
-        grid=(b, hq, num_steps),
-        in_specs=in_specs,
-        out_specs=(
-            [pl.BlockSpec((1, 1, bq, d), q_index)]
-            + ([pl.BlockSpec((1, 1, bq, 1), lse_index)] if need_lse else [])
-        ),
-        scratch_shapes=(
-            [] if single_step else
-            [pltpu.VMEM((bq, 128), jnp.float32),
-             pltpu.VMEM((bq, d_ext), jnp.float32)]
-            if mxu_l else
-            [pltpu.VMEM((bq, 128), jnp.float32),
-             pltpu.VMEM((bq, 128), jnp.float32),
-             pltpu.VMEM((bq, d), jnp.float32)]
-        ),
+        num_kv_blocks=s_k_p // bkv,
+        s_k=s_k,
+        causal=is_causal,
+        window=window,
+        static_offset=(s_k - s_q) if pos_offset is None else int(pos_offset),
+        has_dynoff=dyn_pos_offset is not None,
+        dropout_rate=dropout_rate,
+        alibi=alibi,
+        segmented=segmented,
+        softcap=float(logit_softcap or 0.0),
+        need_lse=need_lse,
     )
     outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            [jax.ShapeDtypeStruct((b, hq, s_q_p, d), q.dtype)]
-            + ([jax.ShapeDtypeStruct((b, hq, s_q_p, 1), jnp.float32)]
-               if need_lse else [])
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        grid=(s_q_p // bq, b * hq),
+        in_specs=in_specs,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=block_sizes.num_warps,
+            num_stages=block_sizes.num_stages),
         interpret=interpret,
         debug=debug,
-    )(*prefetch, *inputs)
-
-    o = outs[0]
-    lse = outs[1][..., 0] if need_lse else None
-    if s_q_p != s_q:
-        o = o[:, :, :s_q, :]
-        if need_lse:
-            lse = lse[:, :, :s_q]
+        name="flash_fwd",
+    )(*inputs)
+    o = outs[0][:, :, :s_q, :d]
+    lse = outs[1][:, :, :s_q] if need_lse else None
     return o, lse

@@ -1,16 +1,16 @@
 """KV cache with optional FP8/INT8 quantization (SURVEY.md §2.3 T6).
 
 The reference defers everything decode-related; BASELINE.json's north_star
-specifies a flash-decode path with FP8/INT8 quantized KV cache and dequant
-fused into the QKᵀ and PV inner loops.
+specifies a decode path with FP8/INT8 quantized KV cache and the dequant
+folded into the QKᵀ and PV products.
 
-Quantization scheme (TPU-friendly):
+Quantization scheme:
   - per-token, per-kv-head symmetric scales: scale = amax(|k_t|) / qmax
-  - scales are stored [B, Hkv, 1, S] (token dim on LANES) so the decode
-    kernel can fold them into (G, block)-shaped row vectors AFTER the dots:
+  - scales are stored [B, Hkv, 1, S] (token dim last) so decode folds them
+    into the logits / probabilities AFTER the dots:
         S  = (q̃ · K_q^T) ⊙ k_scale      (k dequant folded into logits)
-        O += (P ⊙ v_scale) · V_q         (v dequant folded into P)
-    leaving only the int8/fp8 -> bf16 cast per tile on the VPU.
+        O  = (P ⊙ v_scale) · V_q         (v dequant folded into P)
+    leaving only the int8/fp8 -> bf16 convert on the cache operand.
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ def update_cache(
     `active`; callers that guarantee capacity (prefill into a fresh cache,
     admission-checked appends) pass `assume_fits=True` to keep the
     write-only fast path — the read-back would double a prefill's cache
-    HBM traffic.
+    memory traffic.
     """
     b, hkv, t, d = k_new.shape
     assert t <= cache.k.shape[2], (t, cache.k.shape)

@@ -1,25 +1,21 @@
-"""Paged KV cache + paged flash-decode (vLLM-style block tables, TPU-native).
+"""Paged KV cache + paged decode (vLLM-style block tables).
 
 Production serving extension beyond the reference's scope (the reference has
-no decode path at all — SURVEY.md §2.3 T6 covers the dense decode kernel
-this builds on). A contiguous per-slot cache (`ops/kvcache.py`) reserves
-Smax tokens of HBM per sequence; a paged cache shares one pool of fixed-size
-pages, so HBM holds the *sum of live context*, not `batch · Smax`:
+no decode path at all). A contiguous per-slot cache (`ops/kvcache.py`)
+reserves Smax tokens of device memory per sequence; a paged cache shares one
+pool of fixed-size pages, so memory holds the *sum of live context*, not
+`batch · Smax`:
 
   - `k_pages`/`v_pages`: [num_pages, Hkv, page_size, D] shared pool.
   - `block_table`: [B, max_pages_per_seq] int32 — logical block j of
     sequence b lives in physical page `block_table[b, j]`.
-  - The decode kernel is the SAME `_decode_kernel` as the dense path
-    (`ops/decode.py`): paging is purely an index-map concern. The block
-    table rides the scalar-prefetch channel (SMEM) next to the lengths,
-    and the K/V `BlockSpec` index maps translate logical block -> physical
-    page — the TPU analogue of vLLM's gather, costing zero kernel-body ops
-    (masking stays in logical position space).
+  - Decode gathers each slot's pages through the table into the dense
+    layout and runs the dense decode math (`ops/decode.py`) unchanged, in
+    logical positions — so paged and dense decode agree exactly.
 
 Page allocation is host-side (`PageAllocator`): admission/eviction decide
-page ownership in Python; the jitted steps only consume device arrays.
-This mirrors production TPU serving stacks, where block tables are control
-plane, not data plane.
+page ownership in Python; the jitted steps only consume device arrays —
+block tables are control plane, not data plane.
 """
 
 from __future__ import annotations
@@ -29,12 +25,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from flashattn_tpu.ops.common import LOG2E, interpret_default
-from flashattn_tpu.ops.decode import (_decode_kernel, decode_slopes_rows,
-                                      prep_decode_q)
+from flashattn_tpu.ops.decode import _decode_attention
 from flashattn_tpu.ops.kvcache import (quantize_tokens,
                                         store_dtype_for)
 
@@ -78,13 +70,8 @@ def init_paged_cache(
     dtype=jnp.bfloat16,
     quant: str | None = None,  # None | "int8" | "fp8"
 ) -> PagedKVCache:
-    """Allocate the page pool + an all-zeros block table.
-
-    page_size must be a multiple of 128 (Mosaic lane tiling); 512-2048 is
-    the practical range on v5e — smaller pages share memory at finer grain,
-    larger pages amortize per-block DMA overhead (see benchmarks).
-    """
-    assert page_size % 128 == 0, f"page_size must be 128-aligned: {page_size}"
+    """Allocate the page pool + an all-zeros block table. Smaller pages
+    share memory at finer grain; larger pages gather in fewer pieces."""
     store_dtype, scales = store_dtype_for(quant, dtype)
     shape = (num_pages, num_kv_heads, page_size, head_dim)
     zeros = jnp.zeros(shape, store_dtype)
@@ -153,8 +140,8 @@ def set_block_table(cache: PagedKVCache, slot, pages: jnp.ndarray,
                     length) -> PagedKVCache:
     """Install a sequence's page list + length into `slot` (admission).
 
-    `pages` must be padded to max_pages_per_seq (dead entries are never
-    dereferenced: the index map clamps to live blocks first).
+    `pages` must be padded to max_pages_per_seq; entries past the length
+    are gathered but masked (their positions are never visible).
     """
     return dataclasses.replace(
         cache,
@@ -325,44 +312,52 @@ def append_paged(
     )
 
 
-@functools.partial(
-    jax.jit, static_argnames=("scale", "interpret", "debug", "window",
-                              "sink", "logit_softcap", "alibi")
-)
+def gather_pages(cache: PagedKVCache):
+    """The dense [B, Hkv, max_pages·page, D] view of every slot's pages (and
+    scales), in logical order through the block table."""
+    b, maxp = cache.block_table.shape
+    _, hkv, page, d = cache.k_pages.shape
+
+    def gather(buf):  # [P, Hkv, page, X] -> [B, Hkv, maxp·page, X]
+        g = jnp.take(buf, cache.block_table, axis=0)  # [B, maxp, Hkv, page, X]
+        return g.transpose(0, 2, 1, 3, 4).reshape(
+            b, hkv, maxp * page, buf.shape[-1])
+
+    def gather_scale(buf):  # [P, Hkv, 1, page] -> [B, Hkv, 1, maxp·page]
+        if buf is None:
+            return None
+        return gather(buf.transpose(0, 1, 3, 2)).transpose(0, 1, 3, 2)
+
+    return (gather(cache.k_pages), gather(cache.v_pages),
+            gather_scale(cache.k_scale), gather_scale(cache.v_scale))
+
+
+_STATIC = ("scale", "window", "sink", "logit_softcap", "alibi")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def paged_decode_attention(
     q: jnp.ndarray,  # [B, Hq, D] — one new token per sequence
     cache: PagedKVCache,
     scale: float | None = None,
-    interpret: bool | None = None,
-    debug: bool = False,
     window: int | None = None,
     sink: int = 0,
     logit_softcap: float | None = None,
     alibi: bool = False,
     alibi_slopes: jnp.ndarray | None = None,  # (Hq,) f32; None = standard
 ) -> jnp.ndarray:
-    """Single-step decode against the paged cache -> [B, Hq, D].
-
-    Same kernel as the dense `decode_attention`; block_kv == page_size and
-    the K/V index maps dereference the block table (scalar-prefetched to
-    SMEM). Dead blocks clamp onto the live range so ragged batches stream
-    only live pages.
-    """
-    return _paged_decode(q[:, :, None], cache, scale, interpret, debug,
-                         window, logit_softcap, alibi,
-                         alibi_slopes, sink=sink)[:, :, 0]
+    """Single-step decode against the paged cache -> [B, Hq, D]: the pages
+    are gathered through the block table into the dense layout, then the
+    dense decode math runs unchanged (logical positions throughout)."""
+    return _paged_decode(q[:, :, None], cache, scale, window, sink,
+                         logit_softcap, alibi, alibi_slopes)[:, :, 0]
 
 
-@functools.partial(
-    jax.jit, static_argnames=("scale", "interpret", "debug", "window",
-                              "sink", "logit_softcap", "alibi")
-)
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def paged_decode_attention_chunk(
     q: jnp.ndarray,  # [B, Hq, T, D] — T new tokens per sequence
     cache: PagedKVCache,
     scale: float | None = None,
-    interpret: bool | None = None,
-    debug: bool = False,
     window: int | None = None,
     sink: int = 0,
     logit_softcap: float | None = None,
@@ -371,127 +366,20 @@ def paged_decode_attention_chunk(
 ) -> jnp.ndarray:
     """Chunked decode (chunked prefill / speculative verification) against
     the paged cache; the chunk's K/V must already be appended."""
-    return _paged_decode(q, cache, scale, interpret, debug, window,
-                         logit_softcap, alibi, alibi_slopes, sink=sink)
+    return _paged_decode(q, cache, scale, window, sink, logit_softcap, alibi,
+                         alibi_slopes)
 
 
-def _paged_decode(
-    q: jnp.ndarray,  # [B, Hq, T, D]
-    cache: PagedKVCache,
-    scale: float | None,
-    interpret: bool | None,
-    debug: bool,
-    window: int | None,
-    logit_softcap: float | None,
-    alibi: bool,
-    alibi_slopes: jnp.ndarray | None = None,
-    sink: int = 0,
-):
-    assert sink == 0 or window is not None, "sink requires window"
-    b, hq, t_chunk, d = q.shape
-    _, hkv, page, dk = cache.k_pages.shape
-    assert dk == d
-    assert not (alibi and logit_softcap), "alibi + softcap: pick one"
-    assert hq % hkv == 0
-    assert b == cache.batch, (b, cache.batch)
-    group = hq // hkv
-    if scale is None:
-        scale = 1.0 / (d**0.5)
-    if interpret is None:
-        interpret = interpret_default()
-    num_kv_blocks = cache.block_table.shape[1]
-    block_kv = page
+def _paged_decode(q, cache, scale, window, sink, logit_softcap, alibi,
+                  alibi_slopes):
+    from flashattn_tpu.ops.kvcache import KVCache
 
-    rows = group * t_chunk
-    quantized = cache.quantized
-    int8_mode = quantized and cache.k_pages.dtype == jnp.int8
-    pre = scale if logit_softcap else scale * LOG2E
-    q4, q_scale = prep_decode_q(q, hkv, int8_mode, pre)
-
-    def q_index(b_i, h_i, kv_i, lens, table):
-        return (b_i, h_i, 0, 0)
-
-    def _page(kv_i, lens, table, b_i):
-        # Clamp dead blocks onto the live range (no re-fetch DMA), THEN
-        # translate logical block -> physical page through the table.
-        last = jnp.maximum(pl.cdiv(lens[b_i], block_kv) - 1, 0)
-        first = (
-            jnp.maximum(lens[b_i] - (t_chunk - 1) - window, 0) // block_kv
-            if window is not None else 0)
-        c = jnp.clip(kv_i, first, last)
-        if sink:  # sink blocks sit left of the window: fetch their own page
-            c = jnp.where(kv_i * block_kv < sink,
-                          jnp.minimum(kv_i, last), c)
-        return table[b_i, c]
-
-    def kv_index(b_i, h_i, kv_i, lens, table):
-        return (_page(kv_i, lens, table, b_i), h_i, 0, 0)
-
-    def scale_index(b_i, h_i, kv_i, lens, table):
-        return (_page(kv_i, lens, table, b_i), h_i, 0, 0)
-
-    in_specs = [
-        pl.BlockSpec((1, 1, rows, d), q_index),
-        pl.BlockSpec((1, 1, block_kv, d), kv_index),
-        pl.BlockSpec((1, 1, block_kv, d), kv_index),
-    ]
-    args = [q4, cache.k_pages, cache.v_pages]
-    if int8_mode:
-        in_specs.append(pl.BlockSpec((1, 1, rows, 1), q_index))
-        args.append(q_scale)
-    if quantized:
-        in_specs += [
-            pl.BlockSpec((1, 1, 1, block_kv), scale_index),
-            pl.BlockSpec((1, 1, 1, block_kv), scale_index),
-        ]
-        args += [cache.k_scale, cache.v_scale]
-    if alibi:
-        in_specs.append(pl.BlockSpec(
-            (1, rows, 1), lambda b_i, h_i, kv_i, lens, table: (h_i, 0, 0)))
-        args.append(decode_slopes_rows(alibi_slopes, hq, hkv, t_chunk))
-
-    def kernel(lengths_ref, table_ref, *rest, **kw):
-        # The table is consumed by the index maps only; the kernel body is
-        # the dense decode kernel, reasoning in logical positions.
-        del table_ref
-        return _decode_kernel(lengths_ref, *rest, **kw)
-
-    kernel = functools.partial(
-        kernel,
-        quantized=quantized,
-        int8_mode=int8_mode,
-        group=rows,
-        block_kv=block_kv,
-        num_kv_blocks=num_kv_blocks,
-        window=window,
-        sink=sink,
-        chunk=t_chunk,
-        with_lse=False,
-        softcap=float(logit_softcap or 0.0),
-        alibi_hq=hq if alibi else 0,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(b, hkv, num_kv_blocks),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((1, 1, rows, d), q_index),
-            scratch_shapes=[
-                # Leading h_fuse=1 axis: the shared kernel indexes
-                # scratches [hh, ...] (paged keeps one head per step — the
-                # page indirection already owns the index map).
-                pltpu.VMEM((1, rows, 128), jnp.float32),
-                pltpu.VMEM((1, rows, 128), jnp.float32),
-                pltpu.VMEM((1, rows, d), jnp.float32),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, hkv, rows, d), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-        debug=debug,
-    )(cache.length, cache.block_table, *args)
-    return out.reshape(b, hq, t_chunk, d)
+    assert q.shape[0] == cache.batch, (q.shape, cache.batch)
+    # The barrier keeps the gather out of the decode's fusions, so the
+    # decode math compiles exactly as on a dense cache (bit-equal results).
+    k, v, k_scale, v_scale = jax.lax.optimization_barrier(gather_pages(cache))
+    dense = KVCache(k=k, v=v, k_scale=k_scale, v_scale=v_scale,
+                    length=cache.length)
+    return _decode_attention(q, dense, scale, window, sink,
+                             logit_softcap=logit_softcap, alibi=alibi,
+                             alibi_slopes=alibi_slopes)

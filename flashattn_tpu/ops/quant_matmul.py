@@ -2,13 +2,11 @@
 
 Absent from the reference (north_star: "weight-only INT8/INT4 matmuls for
 the surrounding projections"). Decode-time projections are weight-streaming
-bound, so halving/quartering weight bytes in HBM is the win; dequant happens
-in VMEM after the DMA.
+bound, so halving/quartering weight bytes in device memory is the win.
 
-TPU-native layout decisions:
-  - scales are per-output-channel f32 [1, N] (lane-aligned) and fold into
-    the fp32 accumulator at finalize — one (bm, bn) multiply per output tile,
-    nothing in the K-streaming hot loop.
+Layout decisions:
+  - scales are per-output-channel f32 [1, N] and multiply the [M, N]
+    result — nothing touches the weights but the convert.
   - INT4 is nibble-packed along the CONTRACTION dim with a half-split
     permutation: byte row r holds original row r (low nibble) and row
     r + K/2 (high nibble). Unpacking yields the two contiguous K-halves
@@ -23,10 +21,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from flashattn_tpu.ops.common import interpret_default, round_up
 
 INT8_MAX = 127.0
 INT4_MAX = 7.0
@@ -71,201 +65,61 @@ def dequantize_weights(qw: QuantizedLinear) -> jnp.ndarray:
     """Oracle dequant -> f32 [K, N]."""
     if qw.bits == 8:
         return qw.w.astype(jnp.float32) * qw.scale
-    raw = qw.w.view(jnp.uint8).astype(jnp.int32)
-    lo = ((raw & 0xF) ^ 8) - 8  # sign-extend nibble
-    hi = ((raw >> 4) ^ 8) - 8
-    full = jnp.concatenate([lo, hi], axis=0)
-    return full.astype(jnp.float32) * qw.scale
+    lo, hi = _unpack_int4(qw.w, jnp.float32)
+    return jnp.concatenate([lo, hi], axis=0) * qw.scale
 
 
-def _qmm8_kernel(
-    x_ref,  # (bm, bk) bf16 — or int8 in a8 mode
-    w_ref,  # (bk, bn) int8
-    scale_ref,  # (1, bn) f32
-    *rest,  # [x_scale_ref (bm, 1) f32,] o_ref, acc_scratch
-    num_k_blocks: int,
-    a8: bool,
-):
-    if a8:
-        x_scale_ref, o_ref, acc_scratch = rest
-    else:
-        o_ref, acc_scratch = rest
-    kb = pl.program_id(2)
-
-    @pl.when(kb == 0)
-    def _init():
-        acc_scratch[...] = jnp.zeros_like(acc_scratch)
-
-    x = x_ref[...]
-    if a8:
-        # W8A8: both operands int8 into the native int8 MXU — no (bk, bn)
-        # dequant cast in the hot loop; both scales fold at finalize.
-        acc_scratch[...] += jax.lax.dot_general(
-            x, w_ref[...],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)
-    else:
-        acc_scratch[...] += jax.lax.dot_general(
-            x, w_ref[...].astype(x.dtype),
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    @pl.when(kb == num_k_blocks - 1)
-    def _finalize():
-        out = acc_scratch[...] * scale_ref[...]
-        if a8:
-            out = out * x_scale_ref[...]
-        o_ref[...] = out.astype(o_ref.dtype)
+def _unpack_int4(w: jnp.ndarray, dtype) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Nibble-packed [K/2, N] -> the two contiguous K-halves in `dtype`."""
+    raw = w.view(jnp.uint8).astype(jnp.int32)
+    lo = ((raw & 0xF) ^ 8) - 8  # rows [0, K/2)
+    hi = ((raw >> 4) ^ 8) - 8  # rows [K/2, K)
+    return lo.astype(dtype), hi.astype(dtype)
 
 
-def _qmm4_kernel(
-    x_lo_ref,  # (bm, bk/2) bf16|int8 — x columns [kb·bk/2, ...)
-    x_hi_ref,  # (bm, bk/2) bf16|int8 — x columns [K/2 + kb·bk/2, ...)
-    w_ref,  # (bk/2, bn) nibble-packed int8
-    scale_ref,  # (1, bn) f32
-    *rest,  # [x_scale_ref (bm, 1) f32,] o_ref, acc_scratch
-    num_k_blocks: int,
-    a8: bool,
-):
-    if a8:
-        x_scale_ref, o_ref, acc_scratch = rest
-    else:
-        o_ref, acc_scratch = rest
-    kb = pl.program_id(2)
-
-    @pl.when(kb == 0)
-    def _init():
-        acc_scratch[...] = jnp.zeros_like(acc_scratch)
-
-    x_lo = x_lo_ref[...]
-    x_hi = x_hi_ref[...]
-    raw = w_ref[...].view(jnp.uint8).astype(jnp.int32)  # (bk/2, bn)
-    # W4A8 unpacks nibbles to int8 (integer ops only) and dots on the int8
-    # MXU; weight-only unpacks straight to the activation dtype.
-    unpack_dtype = jnp.int8 if a8 else x_lo.dtype
-    lo = (((raw & 0xF) ^ 8) - 8).astype(unpack_dtype)  # rows [0, K/2)
-    hi = (((raw >> 4) ^ 8) - 8).astype(unpack_dtype)  # rows [K/2, K)
-    acc_t = jnp.int32 if a8 else jnp.float32
-    acc_scratch[...] += jax.lax.dot_general(
-        x_lo, lo,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=acc_t,
-    ).astype(jnp.float32)
-    acc_scratch[...] += jax.lax.dot_general(
-        x_hi, hi,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=acc_t,
-    ).astype(jnp.float32)
-
-    @pl.when(kb == num_k_blocks - 1)
-    def _finalize():
-        out = acc_scratch[...] * scale_ref[...]
-        if a8:
-            out = out * x_scale_ref[...]
-        o_ref[...] = out.astype(o_ref.dtype)
+def _dot(x, w, acc):
+    precision = jax.lax.Precision.HIGHEST if x.dtype == jnp.float32 else None
+    return jax.lax.dot_general(
+        x, w, dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=precision, preferred_element_type=acc)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("block_m", "block_n", "block_k", "interpret",
-                     "out_dtype", "quantize_activations"),
-)
+@functools.partial(jax.jit,
+                   static_argnames=("out_dtype", "quantize_activations"))
 def quant_matmul(
     x: jnp.ndarray,  # [M, K] bf16
     qw: QuantizedLinear,
-    block_m: int = 256,
-    block_n: int = 2048,  # big tiles: per-grid-step overhead (~1us) must be
-    block_k: int = 2048,  # amortized over MBs of weight DMA (v5e measured)
     out_dtype=None,
-    interpret: bool | None = None,
     quantize_activations: bool = False,
 ) -> jnp.ndarray:
-    """y = x @ dequant(qw) with the dequant fused after the int8/int4 DMA.
+    """y = x @ dequant(qw): the int8/int4 weights convert to the activation
+    dtype inside the product (XLA fuses the convert into the GEMM's operand
+    load, so the weights cross memory at 1 or 1/2 byte per element) and the
+    per-channel scale multiplies the [M, N] result.
 
     quantize_activations=True (W8A8 / W4A8): activations quantize per row
-    (symmetric int8) and both dots run on the native int8 MXU — no
-    weight-tile dequant cast at all. Adds ~0.4% activation quantization
-    noise; gate with the ppl tests when wiring into a model.
+    (symmetric int8) and the product runs int8 x int8 -> int32; both scales
+    fold into the result. Adds ~0.4% activation quantization noise.
     """
     m, k = x.shape
     assert k == qw.k, (k, qw.k)
-    n = qw.out_features
     if out_dtype is None:
         out_dtype = x.dtype
-    if interpret is None:
-        interpret = interpret_default()
-
-    def fit_divisor(limit: int, dim: int, step: int = 128) -> int:
-        """Largest multiple of `step` <= limit that divides dim (real dims
-        like 5632 or 32000 are 128-multiples but not powers of two); small
-        dims (< step) use one whole-dim block."""
-        if dim <= limit:
-            return dim
-        b = limit - limit % step
-        while b >= step and dim % b:
-            b -= step
-        assert b >= step and dim % b == 0, (dim, limit)
-        return b
-
-    bm = max(8, min(block_m, round_up(m, 8)))
-    bn = fit_divisor(block_n, n)
-    bk = fit_divisor(block_k, k)
-    # int4: the packed contraction dim is K/2; keep nibble pairs in one tile.
-    assert qw.bits == 8 or bk % 2 == 0
-
-    m_p = round_up(m, bm)
-    if m_p != m:
-        x = jnp.pad(x, ((0, m_p - m), (0, 0)))
-    num_k_blocks = k // bk
-
-    a8 = quantize_activations
-    extra_specs, extra_args = [], []
-    if a8:
+    if quantize_activations:
         amax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=1, keepdims=True)
-        x_scale = jnp.maximum(amax / INT8_MAX, 1e-10)  # [M_p, 1]
+        x_scale = jnp.maximum(amax / INT8_MAX, 1e-10)  # [M, 1]
         x = jnp.clip(jnp.round(x.astype(jnp.float32) / x_scale),
                      -INT8_MAX, INT8_MAX).astype(jnp.int8)
-        extra_specs = [pl.BlockSpec((bm, 1), lambda i, j, kb: (i, 0))]
-        extra_args = [x_scale]
-
-    common = dict(
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, kb: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-    if qw.bits == 8:
-        y = pl.pallas_call(
-            functools.partial(_qmm8_kernel, num_k_blocks=num_k_blocks, a8=a8),
-            grid=(m_p // bm, n // bn, num_k_blocks),
-            in_specs=[
-                pl.BlockSpec((bm, bk), lambda i, j, kb: (i, kb)),
-                pl.BlockSpec((bk, bn), lambda i, j, kb: (kb, j)),
-                pl.BlockSpec((1, bn), lambda i, j, kb: (0, j)),
-            ] + extra_specs,
-            **common,
-        )(x, qw.w, qw.scale, *extra_args)
+        cdt, acc = jnp.int8, jnp.int32
     else:
-        # x is consumed as two half-K streams matching the nibble planes:
-        # packed tile kb pairs x[:, kb·bk/2 :] (low) with x[:, K/2 + kb·bk/2 :]
-        # (high). Both are views of the same x, indexed in half-tiles.
-        kp = bk // 2
-        num_half = k // 2 // kp  # == num_k_blocks
-        y = pl.pallas_call(
-            functools.partial(_qmm4_kernel, num_k_blocks=num_half, a8=a8),
-            grid=(m_p // bm, n // bn, num_half),
-            in_specs=[
-                pl.BlockSpec((bm, kp), lambda i, j, kb: (i, kb)),
-                pl.BlockSpec((bm, kp), lambda i, j, kb, nh=num_half: (i, nh + kb)),
-                pl.BlockSpec((kp, bn), lambda i, j, kb: (kb, j)),
-                pl.BlockSpec((1, bn), lambda i, j, kb: (0, j)),
-            ] + extra_specs,
-            **common,
-        )(x, x, qw.w, qw.scale, *extra_args)
-    return y[:m] if m_p != m else y
+        x_scale = None
+        cdt, acc = x.dtype, jnp.float32
+    if qw.bits == 8:
+        y = _dot(x, qw.w.astype(cdt), acc)
+    else:
+        lo, hi = _unpack_int4(qw.w, cdt)
+        y = _dot(x[:, : k // 2], lo, acc) + _dot(x[:, k // 2:], hi, acc)
+    y = y.astype(jnp.float32) * qw.scale
+    if x_scale is not None:
+        y = y * x_scale
+    return y.astype(out_dtype)

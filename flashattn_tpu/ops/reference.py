@@ -1,6 +1,6 @@
 """Pure-jnp reference (oracle) attention.
 
-TPU-native counterpart of the reference's naive attention + LSE oracle:
+Counterpart of the reference's naive attention + LSE oracle:
   - ``naive_attention``  (reference ``code/Performance_Comparison.py:130-144``)
   - LSE oracle via logsumexp (reference ``Phase_3.md:699-755``)
 
@@ -12,7 +12,12 @@ stable high-precision reference for bf16 kernel outputs.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# On the GPU a float32 product runs in TF32 (about three decimal digits)
+# unless asked otherwise; the oracle asks.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def reference_attention_with_lse(
@@ -59,7 +64,7 @@ def reference_attention_with_lse(
         kf = jnp.repeat(kf, rep, axis=1)
         vf = jnp.repeat(vf, rep, axis=1)
 
-    s = jnp.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    s = jnp.einsum("bhqd,bhkd->bhqk", qf, kf, precision=_HIGHEST) * scale
     if logit_softcap:
         s = logit_softcap * jnp.tanh(s / logit_softcap)
     if alibi:
@@ -88,7 +93,7 @@ def reference_attention_with_lse(
     p = jnp.exp(s - m_safe)
     l = jnp.sum(p, axis=-1, keepdims=True)
     l_safe = jnp.where(l == 0.0, 1.0, l)
-    o = jnp.einsum("bhqk,bhkd->bhqd", p / l_safe, vf)
+    o = jnp.einsum("bhqk,bhkd->bhqd", p / l_safe, vf, precision=_HIGHEST)
     lse = (m_safe + jnp.log(l))[..., 0]
     return o.astype(out_dtype), lse
 

@@ -3,11 +3,11 @@
 The reference defers varlen as a documented design (``Phase_6.md:118-178``,
 ``README.md:138-143``): pack the batch into one long sequence, carry a
 ``cu_seqlens`` prefix-sum, and add "one more layer of boundary checks" per
-program. The TPU-native realization is **segment IDs** instead of per-program
+program. The realization here is **segment IDs** instead of per-program
 range lookups: every token carries an int32 sequence id, the kernels mask on
 ``seg_q[i] == seg_k[j]``, and the grid/shapes stay fully static — one
-compiled executable serves every packing (no retrace per batch, which on TPU
-is the difference between a kernel and a compile storm). ``cu_seqlens`` is
+compiled executable serves every packing (no retrace per batch, which is
+the difference between a kernel and a compile storm). ``cu_seqlens`` is
 supported as a thin conversion layer for API parity with the reference's
 planned interface.
 

@@ -1,8 +1,8 @@
 """Mesh parallelism for the flash-attention kernels (SURVEY.md §2.3 T9/T10).
 
 The reference is single-GPU with no distributed code of any kind (SURVEY.md
-§0); everything here is TPU-native scale-out built on jax.sharding meshes and
-XLA collectives over ICI:
+§0); everything here is scale-out built on jax.sharding meshes and XLA
+collectives (NCCL on GPUs):
 
   - ``ring_flash_attention`` — context/sequence parallelism: K/V shards
     rotate around the mesh axis via ``lax.ppermute`` while each device's

@@ -1,17 +1,18 @@
-"""Multi-host runtime initialization + pod mesh construction (SURVEY.md T9).
+"""Multi-host runtime initialization + cluster mesh construction (SURVEY.md
+T9).
 
-The reference has no distributed backend at all (no NCCL/MPI/Gloo anywhere,
-SURVEY.md §5); the TPU-native replacement is not a comms library but the
-JAX runtime itself: ``jax.distributed.initialize`` wires the hosts, GSPMD +
-shard_map emit the collectives, and the MESH LAYOUT decides which axis rides
-ICI (intra-slice, fast) vs DCN (cross-slice, slow).
+The reference has no distributed backend at all (SURVEY.md §5); here it is
+not a comms library but the JAX runtime itself: ``jax.distributed.initialize``
+wires the hosts, GSPMD + shard_map emit the collectives (XLA hands them to
+NCCL), and the MESH LAYOUT decides which axis stays on one host's NVLink
+(every card of the host reaches every other at the same rate) and which
+crosses the network between hosts (slower).
 
 Rules encoded here (How-to-Scale-Your-Model recipe):
   - Axes that carry heavy collectives (tensor/sequence parallel: all-gather,
-    reduce-scatter, ppermute rings) must map to ICI — keep them INSIDE a
-    host's/slice's device block.
+    reduce-scatter, ppermute rings) stay INSIDE one host's device block.
   - Axes with rare/light collectives (data parallel: one psum of grads per
-    step) go on DCN — put them OUTERMOST so each host's devices stay
+    step) cross hosts — put them OUTERMOST so each host's devices stay
     contiguous in the inner axes.
 """
 
@@ -34,9 +35,9 @@ def initialize_distributed(
 ) -> None:
     """Wire up the multi-host JAX runtime (idempotent; no-op single-host).
 
-    On Cloud TPU pods the three arguments auto-detect from the metadata
-    server; on manual clusters pass them (or set JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Under a cluster manager JAX can detect the three arguments; elsewhere
+    pass them (or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID). Without either, the run stays single-process.
     """
     explicit = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     # NOTE: jax.process_count() would force XLA backend init, which must not
@@ -45,12 +46,12 @@ def initialize_distributed(
         return  # already initialized
     if explicit is None and num_processes is None:
         try:
-            jax.distributed.initialize()  # TPU-pod autodetection
+            jax.distributed.initialize()  # cluster autodetection
         except Exception as e:
-            # Autodetection fails on single-process / non-pod runs — that is
-            # the normal local path, but say so: a REAL pod misconfiguration
-            # (bad metadata, firewalled coordinator) lands here too, and a
-            # silent fallback would train single-host at 1/N throughput.
+            # Autodetection fails on single-process runs — that is the
+            # normal local path, but say so: a REAL cluster misconfiguration
+            # (firewalled coordinator) lands here too, and a silent
+            # fallback would train single-host at 1/N throughput.
             logger.info(
                 "jax.distributed.initialize() autodetection unavailable "
                 "(%s: %s) — continuing single-process. If this IS a "
@@ -72,13 +73,13 @@ def pod_mesh(
     sp: int = 1,
     devices=None,
 ) -> Mesh:
-    """Build a (data, model, sp) mesh with DCN-safe axis placement.
+    """Build a (data, model, sp) mesh with host-boundary-safe axis placement.
 
     `data` defaults to whatever is left after model*sp. Device order from
     jax.devices() is host-major, so making `data` the OUTERMOST mesh axis
-    puts the host boundary (DCN on multi-slice) on the data axis, while
-    model/sp — which run all-gathers and ppermute rings every layer — stay
-    inside a host's ICI domain. Asserts model*sp fits within one process's
+    puts the host boundary (the network between hosts) on the data axis,
+    while model/sp — which run all-gathers and ppermute rings every layer —
+    stay on one host's NVLink. Asserts model*sp fits within one process's
     devices for exactly that reason.
     """
     if devices is None:
@@ -92,7 +93,7 @@ def pod_mesh(
     per_proc = n // max(jax.process_count(), 1)
     assert inner <= per_proc or jax.process_count() == 1, (
         f"model*sp={inner} spans hosts (per-host devices={per_proc}); "
-        "ring/TP collectives would ride DCN — reshape the mesh"
+        "ring/TP collectives would cross hosts — reshape the mesh"
     )
     grid = np.array(devices).reshape(data, model, sp)
     return Mesh(grid, ("data", "model", "sp"))

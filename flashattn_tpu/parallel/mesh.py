@@ -1,7 +1,7 @@
 """Mesh construction + shard_map conveniences for the parallel attention ops.
 
 The reference has no mesh/comms layer (SURVEY.md §5); these helpers are the
-TPU-native entry points: build a named `jax.sharding.Mesh` over the local
+entry points: build a named `jax.sharding.Mesh` over the local
 devices and wrap the ring/Ulysses collectives in shard_map with the
 canonical (data, model, sp) PartitionSpecs.
 """
@@ -29,8 +29,8 @@ from flashattn_tpu.parallel.ulysses import ulysses_flash_attention
 
 def make_mesh(axes: Mapping[str, int], devices=None) -> Mesh:
     """Build a Mesh from {axis_name: size}; sizes must multiply to the
-    device count used. Axis order = dict order (put DCN-crossing axes first
-    on multi-host so inner axes ride ICI)."""
+    device count used. Axis order = dict order (put host-crossing axes
+    first on multi-host so inner axes stay on one host's NVLink)."""
     if devices is None:
         devices = jax.devices()
     n = int(np.prod(list(axes.values())))

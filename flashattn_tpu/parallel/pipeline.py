@@ -1,6 +1,6 @@
 """Pipeline parallelism (GPipe-style) over a mesh axis — SURVEY.md T10.
 
-TPU-native design: no scheduler process, no send/recv library. The pipeline
+Design: no scheduler process, no send/recv library. The pipeline
 IS a shard_map program — each device holds one STAGE of layers (params
 sharded on the 'pp' axis), microbatch activations rotate stage-to-stage with
 ``lax.ppermute``, and the classic GPipe schedule (M microbatches through n

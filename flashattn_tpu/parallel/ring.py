@@ -1,13 +1,13 @@
 """Ring flash attention — context parallelism over a mesh axis.
 
-TPU-native sequence parallelism (SURVEY.md §2.3 T10, §5 "long-context").
+Sequence parallelism (SURVEY.md §2.3 T10, §5 "long-context").
 The reference has no distributed code; what it DOES provide is the math
 that makes this possible: the online-softmax (m, l, acc) update rule is
 associative (reference ``Phase_0.md:123-188``, kernel
 ``_flash_attention_kernel_optimized.py:106-117``), so partial attention
 results computed against disjoint key shards merge exactly with the same
 correction algebra the kernel applies per tile. Ring attention is that
-merge applied across chips instead of across VMEM tiles.
+merge applied across devices instead of across kernel tiles.
 
 Design (inside ``shard_map``; every array is the per-device shard):
 
@@ -16,7 +16,7 @@ Design (inside ``shard_map``; every array is the per-device shard):
             the K/V shard it currently holds, merges (o, lse) partials into
             running (m, l, acc) stats, and rotates K/V one hop along the
             axis with ``lax.ppermute`` — the permute for step t+1 is issued
-            BEFORE step t's compute so XLA can overlap the ICI transfer with
+            BEFORE step t's compute so XLA can overlap the transfer with
             the kernel.
   causal:   at step t the device holds the shard originating from
             ``src = (idx - t) mod n``. step 0 is the diagonal (local causal
@@ -93,13 +93,12 @@ def _rotate(xs, axis_name: str, n: int, anchor=None):
     max) orders the permute-start AFTER that compute. Without it the hops'
     permutes form a pure chain (hop t+1's input is hop t's output) with no
     dependency on any kernel, and XLA's latency-hiding scheduler hoists the
-    WHOLE chain to the top of the program — measured on the AOT v5e
-    schedule: 10/14 collective-permute pairs with zero kernels in flight
-    (``benchmarks/results/ring_overlap_schedule.json``, round 3). The
-    anchoring must be a REAL data dependency: ``lax.optimization_barrier``
-    survives lowering but XLA's OptimizationBarrierExpander deletes it
-    before the scheduling pass runs (verified on the AOT v5e compile —
-    zero ``opt-barrier`` ops in the final module, schedule unchanged). So
+    WHOLE chain to the top of the program, with no kernel in flight under
+    the permutes. The anchoring must be a REAL data dependency:
+    ``lax.optimization_barrier`` survives lowering but XLA's
+    OptimizationBarrierExpander deletes it before the scheduling pass runs.
+    (Whether the GPU scheduler overlaps NCCL permutes with the kernels
+    under this anchor has not been measured.) So
     one element of each floating x takes a numerically-zero perturbation
     ``min(|anchor[0]|, 0)`` that the compiler cannot fold (it would need
     range analysis; -inf anchors map to 0 through |.|->min, and NaN
@@ -138,8 +137,8 @@ def _ring_steps(n: int, is_causal: bool, window, s_local: int) -> int:
 
     A sliding window prunes whole hops statically: at hop t >= 1 the K shard
     is (t-1)·L+1 .. (t+1)·L-1 positions in the past, so it is visible iff
-    (t-1)·L + 1 <= window - 1. The same pruning the wavefront does per tile
-    (flash_fwd.build_wavefront), applied per ring hop.
+    (t-1)·L + 1 <= window - 1. The same pruning the kernels do per block
+    (flash_fwd.kv_block_range), applied per ring hop.
     """
     if not (is_causal and window is not None):
         return n
@@ -268,14 +267,11 @@ def _ring_forward(q, k, v, dropout_seed, alibi_slopes, segment_ids,
     for step in range(steps):
         if step < steps - 1:
             # Issue the next hop's permute before this step's compute so XLA
-            # can overlap the ICI transfer with the kernel; anchor on the
+            # can overlap the transfer with the kernel; anchor on the
             # previous hop's PRE-merge kernel output (lse_p, not the merged
             # stats) so the permute chain cannot be hoisted wholesale ahead
             # of all compute (see _rotate) yet does not wait for the merge
-            # fusion either — the round-5 trace shows 12/14 permute pairs
-            # with kernels in flight under this anchor vs 10/14 when
-            # anchored on the merged m (the 4 hop-boundary pairs sat
-            # against merge-fusion work, VERDICT r4 Weak #5).
+            # fusion either.
             nxt = _rotate([x for x in (k_cur, v_cur, segk_cur)
                            if x is not None], axis_name, n,
                           anchor=lse_p if step > 0 else None)

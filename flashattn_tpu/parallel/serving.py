@@ -5,7 +5,7 @@ Two modes:
   - Heads (TP): the decode kernel is mesh-oblivious per KV head — plain
     shard_map over the head dim, no new math (tests/test_decode_sharded.py).
   - Sequence: each device holds a contiguous SLICE of every sequence's
-    cache (caches n× longer than one chip's HBM allows). Every device runs
+    cache (caches n× longer than one device's memory allows). Every device runs
     flash-decode over its slice with an LSE output, and the partials merge
     with the associative online-softmax algebra — the same correction the
     kernels apply per tile and ring attention applies per hop, here as two
@@ -46,8 +46,8 @@ def sequence_sharded_decode(
     Window note: positions are shard-local, so `window` is only supported
     when it covers the full live range (pass None for sharded windows)."""
     assert window is None, "sliding window + sequence sharding: use TP/heads"
-    o_p, lse_p = _decode_attention(
-        q[:, :, None], cache, scale, None, None, False, None, with_lse=True)
+    o_p, lse_p = _decode_attention(q[:, :, None], cache, scale,
+                                   with_lse=True)
     o_p, lse_p = o_p[:, :, 0], lse_p[:, :, 0]  # [B,Hq,D], [B,Hq]
     m = lax.pmax(lse_p, axis_name)
     m_safe = jnp.where(jnp.isneginf(m), 0.0, m)

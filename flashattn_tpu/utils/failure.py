@@ -2,7 +2,7 @@
 reference has nothing here; its only failure story is documented OOM
 behavior, ``Phase_1.md:166-171``).
 
-TPU-native failure model (what actually goes wrong on pods):
+Failure model (what actually goes wrong on multi-device jobs):
 
 - **Numeric blowup** — a bad batch / lr spike drives the loss non-finite.
   Detected synchronously per step; recovery = restore the last checkpoint
@@ -183,7 +183,7 @@ def resilient_train(
             step = int(new_state["step"])
             if step % check_every == 0:
                 # check_finite syncs the host on the step's metrics — raise
-                # check_every on TPU if the sync shows in the profile (a
+                # check_every if the sync shows in the profile (a
                 # blowup is then detected within check_every steps, still
                 # before the next checkpoint when check_every <= ckpt_every).
                 check_finite(metrics, step)

@@ -1,6 +1,6 @@
 """Tracing / profiling helpers (SURVEY.md §5: the reference has only
-print-based wall-clock timing; the TPU-native plan is jax.profiler traces
-plus the analytic roofline in utils/roofline.py)."""
+print-based wall-clock timing; here jax.profiler traces plus the analytic
+roofline in utils/roofline.py). Traces default to `<repo>/.traces`."""
 
 from __future__ import annotations
 
@@ -10,9 +10,13 @@ import os
 
 import jax
 
+from flashattn_tpu.utils.compile_cache import REPO_ROOT
+
+_TRACE_DIR = str(REPO_ROOT / ".traces")
+
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/flashattn_tpu_trace"):
+def trace(log_dir: str = _TRACE_DIR):
     """Capture a jax.profiler trace (TensorBoard/XProf format) around a block.
 
     >>> with trace("/tmp/t"):
@@ -23,7 +27,7 @@ def trace(log_dir: str = "/tmp/flashattn_tpu_trace"):
         yield log_dir
 
 
-def profile_fn(fn, *args, log_dir: str = "/tmp/flashattn_tpu_trace",
+def profile_fn(fn, *args, log_dir: str = _TRACE_DIR,
                iters: int = 3) -> str:
     """Run fn under the profiler (after one warmup) and return the trace dir."""
     out = fn(*args)

@@ -1,7 +1,6 @@
-"""Per-kernel roofline model: analytic HBM bytes + MXU FLOPs vs chip
-speed-of-light (BASELINE.json north_star: "speed-of-light HBM/MXU roofline
-per chip"). Extends the reference's FLOPs model (Performance_Comparison.py:98-107)
-with a bytes model the reference lacks.
+"""Per-kernel roofline model: analytic memory bytes + FLOPs vs the device's
+published peaks. Extends the reference's FLOPs model
+(Performance_Comparison.py:98-107) with a bytes model the reference lacks.
 """
 
 from __future__ import annotations
@@ -10,57 +9,50 @@ import dataclasses
 
 import jax
 
-from flashattn_tpu.ops.common import cdiv
-
 
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
     name: str
-    bf16_tflops: float  # peak MXU bf16
-    int8_tops: float  # peak MXU int8
-    hbm_gbps: float  # peak HBM bandwidth GB/s
+    bf16_tflops: float  # dense tensor-core peak, bf16 inputs
+    int8_tops: float  # dense tensor-core peak, int8 inputs
+    hbm_gbps: float  # device-memory bandwidth, GB/s
     hbm_gib: float
-    vmem_mib: float
 
 
-# Public v5e specs (cloud.google.com/tpu/docs/v5e).
-TPU_V5E = ChipSpec(
-    name="v5e", bf16_tflops=197.0, int8_tops=394.0, hbm_gbps=819.0,
-    hbm_gib=16.0, vmem_mib=128.0,
-)
-TPU_V4 = ChipSpec(
-    name="v4", bf16_tflops=275.0, int8_tops=275.0, hbm_gbps=1228.0,
-    hbm_gib=32.0, vmem_mib=128.0,
-)
-TPU_V5P = ChipSpec(
-    name="v5p", bf16_tflops=459.0, int8_tops=918.0, hbm_gbps=2765.0,
-    hbm_gib=95.0, vmem_mib=128.0,
-)
+# NVIDIA H100 data sheet, SXM part, dense rates without sparsity, at the
+# full 700 W power limit (a card set below it cannot hold these clocks).
+H100_SXM = ChipSpec(name="H100 SXM", bf16_tflops=989.0, int8_tops=1979.0,
+                    hbm_gbps=3350.0, hbm_gib=80.0)
 
-_CHIPS = {c.name: c for c in (TPU_V5E, TPU_V4, TPU_V5P)}
+# Keyed by jax.devices()[0].device_kind.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": H100_SXM,
+}
 
 
 def detect_chip() -> ChipSpec:
-    kind = jax.devices()[0].device_kind.lower()
-    for name, spec in _CHIPS.items():
-        if name in kind.replace(" ", ""):
-            return spec
-    if "v5 lite" in kind or "v5lite" in kind.replace(" ", ""):
-        return TPU_V5E
-    return TPU_V5E  # conservative default
+    """The peak table entry of this device. An unknown device is an error:
+    a roofline against some other device's peak would be a wrong number."""
+    kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device_kind {kind!r}; add it to "
+            f"flashattn_tpu.utils.roofline.PEAKS with its source") from None
 
 
-def mxu_depth_frac(d: int) -> float:
-    """Effective MXU peak fraction for a head_dim-d attention kernel.
+def device_fields() -> dict:
+    """The device every printed result ran on (platform, kind, count)."""
+    dev = jax.devices()[0]
+    return {"platform": dev.platform, "device_kind": dev.device_kind,
+            "device_count": len(jax.devices())}
 
-    The MXU is a 128x128 systolic array: every attention matmul either
-    CONTRACTS over D (QK', dO*V') or has D output lanes (PV, dS*K, P'*dO,
-    dS'*Q), so D < 128 leaves 1 - D/128 of the array idle no matter how the
-    kernel tiles. A raw-peak sol_frac would understate D=64 efficiency by
-    exactly 2x (the round-1 VERDICT's 'misleading number') — the roofline
-    models the structural ceiling instead.
-    """
-    return min(d, 128) / 128.0
+
+def gpu_chip() -> ChipSpec | None:
+    """The peak table entry on a GPU; None elsewhere (a CPU rehearsal has
+    no roofline — its times are not device times)."""
+    return detect_chip() if jax.devices()[0].platform == "gpu" else None
 
 
 @dataclasses.dataclass
@@ -72,7 +64,6 @@ class RooflineReport:
     compute_seconds: float
     memory_seconds: float
     bound: str  # "compute" | "memory"
-    mxu_frac: float = 1.0  # effective MXU peak fraction (D-depth penalty)
 
     def achieved(self, seconds: float) -> dict:
         return {
@@ -82,80 +73,44 @@ class RooflineReport:
         }
 
 
-def attention_fwd_roofline(
-    b: int, hq: int, hkv: int, s_q: int, s_k: int, d: int,
-    is_causal: bool, block_q: int, block_kv: int,
-    dtype_bytes: int = 2, chip: ChipSpec | None = None,
-) -> RooflineReport:
-    """Analytic roofline for the Pallas forward.
-
-    HBM traffic model: Q and O move once; K/V tiles are re-streamed once per
-    q-block (no cross-block cache on TPU — VMEM is software-managed), with
-    causal pruning cutting the streamed fraction roughly in half.
-    """
-    chip = chip or detect_chip()
-    mxu = mxu_depth_frac(d)
-    flops = 4.0 * b * hq * s_q * s_k * d * (0.5 if is_causal else 1.0)
-    num_q_blocks = cdiv(s_q, block_q)
-    kv_stream_frac = 0.5 if is_causal and s_q == s_k else 1.0
-    q_bytes = 2 * b * hq * s_q * d * dtype_bytes  # Q read + O write
-    lse_bytes = b * hq * s_q * 4
-    kv_bytes = (
-        2 * b * hkv * s_k * d * dtype_bytes * num_q_blocks * kv_stream_frac
-    )
-    hbm = q_bytes + lse_bytes + kv_bytes
-    compute_s = flops / (chip.bf16_tflops * 1e12 * mxu)
+def _report(flops, hbm, chip):
+    compute_s = flops / (chip.bf16_tflops * 1e12)
     memory_s = hbm / (chip.hbm_gbps * 1e9)
-    sol = max(compute_s, memory_s)
     return RooflineReport(
         flops=flops,
         hbm_bytes=hbm,
         arithmetic_intensity=flops / hbm,
-        sol_seconds=sol,
+        sol_seconds=max(compute_s, memory_s),
         compute_seconds=compute_s,
         memory_seconds=memory_s,
         bound="compute" if compute_s >= memory_s else "memory",
-        mxu_frac=mxu,
     )
+
+
+def attention_fwd_roofline(
+    b: int, hq: int, hkv: int, s_q: int, s_k: int, d: int,
+    is_causal: bool, dtype_bytes: int = 2, chip: ChipSpec | None = None,
+) -> RooflineReport:
+    """Speed-of-light of the forward: its FLOPs, and the bytes it cannot
+    avoid — Q, K, V read once, O and the LSE written once. (K/V tiles that
+    several q blocks re-read are served from L2 when the blocks of one head
+    run together; the roofline takes the least traffic.)"""
+    chip = chip or detect_chip()
+    flops = 4.0 * b * hq * s_q * s_k * d * (0.5 if is_causal else 1.0)
+    hbm = ((2 * b * hq * s_q + 2 * b * hkv * s_k) * d * dtype_bytes
+           + b * hq * s_q * 4)
+    return _report(flops, hbm, chip)
 
 
 def attention_bwd_roofline(
     b: int, hq: int, hkv: int, s_q: int, s_k: int, d: int,
-    is_causal: bool, block_q: int, block_kv: int,
-    dtype_bytes: int = 2, chip: ChipSpec | None = None,
+    is_causal: bool, dtype_bytes: int = 2, chip: ChipSpec | None = None,
 ) -> RooflineReport:
-    """dQ + dKV kernels: 5 matmuls over the S_q×S_k square (2.5× fwd flops);
-    Q/dO/K/V re-streamed by the opposing kernel's block count."""
+    """Speed-of-light of the dQ + dK/dV kernels: 5 matmuls over the
+    S_q×S_k square (2.5× the forward's FLOPs); Q, O, dO, K, V and the row
+    stats read once, dQ, dK, dV and delta written once."""
     chip = chip or detect_chip()
-    mxu = mxu_depth_frac(d)
     flops = 2.5 * 4.0 * b * hq * s_q * s_k * d * (0.5 if is_causal else 1.0)
-    num_q_blocks = cdiv(s_q, block_q)
-    num_kv_blocks = cdiv(s_k, block_kv)
-    frac = 0.5 if is_causal and s_q == s_k else 1.0
-    # dQ kernel: Q,O,dO,LSE once; K,V streamed per q-block. Writes dQ, delta.
-    dq_hbm = (
-        4 * b * hq * s_q * d * dtype_bytes
-        + 2 * b * hq * s_q * 4
-        + 2 * b * hkv * s_k * d * dtype_bytes * num_q_blocks * frac
-    )
-    # dKV kernel: K,V once; Q,dO,LSE,delta streamed per kv-block. Writes dK,dV.
-    dkv_hbm = (
-        4 * b * hkv * s_k * d * dtype_bytes
-        + (2 * b * hq * s_q * d * dtype_bytes + 2 * b * hq * s_q * 4)
-        * num_kv_blocks
-        * frac
-    )
-    hbm = dq_hbm + dkv_hbm
-    compute_s = flops / (chip.bf16_tflops * 1e12 * mxu)
-    memory_s = hbm / (chip.hbm_gbps * 1e9)
-    sol = max(compute_s, memory_s)
-    return RooflineReport(
-        flops=flops,
-        hbm_bytes=hbm,
-        arithmetic_intensity=flops / hbm,
-        sol_seconds=sol,
-        compute_seconds=compute_s,
-        memory_seconds=memory_s,
-        bound="compute" if compute_s >= memory_s else "memory",
-        mxu_frac=mxu,
-    )
+    hbm = ((4 * b * hq * s_q + 4 * b * hkv * s_k) * d * dtype_bytes
+           + 3 * b * hq * s_q * 4)
+    return _report(flops, hbm, chip)

@@ -2,8 +2,8 @@
 
 Each process contributes 2 virtual CPU devices; the pair forms a global
 4-device runtime through a real coordinator/worker handshake — the same
-`jax.distributed.initialize` path a multi-host TPU pod takes (SURVEY.md T9),
-minus the TPU plugin. Run as: python _multiproc_worker.py <pid> <port>.
+`jax.distributed.initialize` path a multi-host cluster takes (SURVEY.md T9),
+on the CPU backend. Run as: python _multiproc_worker.py <pid> <port>.
 """
 
 import os
@@ -49,8 +49,7 @@ from flashattn_tpu.parallel.ring import ring_flash_attention  # noqa: E402
 from flashattn_tpu.ops.common import BlockSizes  # noqa: E402
 
 bs = BlockSizes(block_q=32, block_kv=32, block_q_dq=32, block_kv_dq=32,
-                block_q_dkv=32, block_kv_dkv=32,
-                block_q_fused=32, block_kv_fused=32)
+                block_q_dkv=32, block_kv_dkv=32)
 ks = jax.random.split(jax.random.PRNGKey(0), 3)
 q, k, v = (jax.random.normal(kk, (1, 2, 128, 32)) for kk in ks)
 spec = P(None, None, "sp", None)

@@ -1,4 +1,4 @@
-"""Flash-decode + quantized KV cache tests: kernel vs dense oracle over the
+"""Decode + quantized KV cache tests: decode vs the dense oracle over the
 dequantized cache (ragged lengths), quantization error bounds, and
 decode-path vs training-path logits parity on the tiny model."""
 
@@ -15,7 +15,6 @@ from flashattn_tpu.ops.decode import decode_attention, decode_attention_chunk
 from flashattn_tpu.ops.kvcache import dequantize, init_cache, quantize_tokens, update_cache
 from flashattn_tpu.ops.reference import reference_attention
 from flashattn_tpu.utils.verify import verify_results
-from flashattn_tpu.utils.verify import verify_results
 
 
 @pytest.mark.parametrize("quant", [None, "int8", "fp8"])
@@ -29,7 +28,7 @@ def test_decode_matches_oracle_ragged(quant):
     cache = dataclasses.replace(cache, length=jnp.array([200, 300], jnp.int32))
     q = jax.random.normal(keys[2], (b, hq, d), jnp.bfloat16)
 
-    o = decode_attention(q, cache, block_kv=256)
+    o = decode_attention(q, cache)
     k_d = dequantize(cache.k, cache.k_scale).astype(jnp.float32)
     v_d = dequantize(cache.v, cache.v_scale).astype(jnp.float32)
     for bi, length in enumerate([200, 300]):
@@ -94,23 +93,6 @@ def test_generate_shapes_and_quant_agreement():
     # tokens to agree between bf16 and int8-KV decode.
     agree = float(jnp.mean((out_bf16 == out_int8).astype(jnp.float32)))
     assert agree >= 0.5, agree
-
-
-def test_fp8e4m3_to_bf16_exhaustive():
-    """All 256 byte patterns: exact for normals/zero; subnormals flush to 0;
-    NaN excluded (quantizer never emits it)."""
-    import numpy as np
-    from flashattn_tpu.ops.common import fp8e4m3_to_bf16
-
-    u = np.arange(256, dtype=np.uint8)
-    x = jax.lax.bitcast_convert_type(jnp.asarray(u), jnp.float8_e4m3fn)
-    got = np.asarray(fp8e4m3_to_bf16(x).astype(jnp.float32))
-    exact = np.asarray(x.astype(jnp.float32))
-    mag = u & 0x7F
-    normal = (mag >= 8) & (mag != 0x7F)  # exclude subnormals and NaN
-    assert np.array_equal(got[normal], exact[normal])
-    sub = mag < 8
-    assert np.all(got[sub] == 0.0)
 
 
 @pytest.mark.parametrize("quant", [None, "int8"])
@@ -206,42 +188,6 @@ def test_chunked_prefill_matches_prefill():
         assert jnp.array_equal(ca.length, cb.length)
 
 
-def test_fp8e4m3_to_bf16_fast_bound():
-    """The select-free kernel variant is exact for normals and within 2^-7
-    absolute on the 16 exp-field-0 codes (zero + subnormals) — far below
-    the KV quantization step."""
-    import numpy as np
-    from flashattn_tpu.ops.common import fp8e4m3_to_bf16_fast
-
-    codes = np.arange(256, dtype=np.uint8)
-    x = jax.lax.bitcast_convert_type(jnp.asarray(codes), jnp.float8_e4m3fn)
-    want = np.asarray(x.astype(jnp.float32))
-    got = np.asarray(fp8e4m3_to_bf16_fast(x).astype(jnp.float32))
-    finite = np.isfinite(want)
-    sub = (codes & 0x78) == 0  # exp field 0
-    np.testing.assert_array_equal(got[finite & ~sub], want[finite & ~sub])
-    assert np.abs(got[finite & sub] - want[finite & sub]).max() <= 2.0**-7
-
-
-def test_fp8e4m3_to_f32_fast_matches_bf16_fast():
-    """The 4-op f32-layout hot-path converter (sign-extension single-mask
-    chain; the only same-width final bitcast Mosaic can lower) must agree
-    with the proven bf16-layout fast path on every e4m3 code — identical
-    mapping, wider output type. (The round-2 'pair' two-bytes-per-lane
-    candidate is gone: Mosaic cannot lower bitwidth-changing bitcasts at
-    all, so it never compiled outside interpret mode.)"""
-    import numpy as np
-    from flashattn_tpu.ops.common import (fp8e4m3_to_bf16_fast,
-                                          fp8e4m3_to_f32_fast)
-
-    codes = np.arange(256, dtype=np.uint8).reshape(2, 128)
-    x = jax.lax.bitcast_convert_type(jnp.asarray(codes), jnp.float8_e4m3fn)
-    a = np.asarray(fp8e4m3_to_bf16_fast(x), dtype=np.float32)
-    b = np.asarray(fp8e4m3_to_f32_fast(x), dtype=np.float32)
-    same = (a == b) | (np.isnan(a) & np.isnan(b))
-    assert same.all()
-
-
 @pytest.mark.parametrize("t_chunk", [1, 8])
 def test_dead_cache_garbage_cannot_poison(t_chunk):
     """NaN/Inf in DEAD cache positions (beyond `length`) must not reach the
@@ -299,45 +245,88 @@ def test_decode_quant_variant_combinations(quant, kw):
     assert r.passed, r
 
 
-def test_pick_h_fuse_heuristic():
-    """h_fuse gating follows the round-4 on-chip A/B
-    (v5e_decode_hfuse{1,_auto}.jsonl): quantized caches on single-block
-    streams fuse; bf16 and multi-block streams never do."""
-    from flashattn_tpu.ops.decode import pick_h_fuse
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_decode_lse_matches_oracle(quant):
+    """The LSE output (what sequence-sharded decode merges on) against the
+    oracle's logsumexp over the live, dequantized cache."""
+    from flashattn_tpu.ops.decode import _decode_attention
+    from flashattn_tpu.ops.reference import reference_attention_with_lse
 
-    # Quantized (1-byte), single block: fuse up to hkv within budget.
-    assert pick_h_fuse(1, 1, 8, 2048, 128) == 8
-    # bf16 (2-byte): never fuse — no dequant cost to amortize, measured
-    # regression 0.870 -> 0.845 at S=2048.
-    assert pick_h_fuse(1, 2, 8, 2048, 128) == 1
-    # Multi-block streams: never fuse (fp8 0.855 -> 0.759 at S=8192).
-    assert pick_h_fuse(2, 1, 8, 4096, 128) == 1
-    assert pick_h_fuse(4, 1, 8, 8192, 128) == 1
-    # VMEM budget caps the fuse depth: 2*h*block*d*esize*2 <= 48 MB.
-    assert pick_h_fuse(1, 1, 32, 32768, 128) == 2
-    # Non-power-of-two head counts stay unfused rather than split ragged.
-    assert pick_h_fuse(1, 1, 3, 2048, 128) == 1
+    b, hq, hkv, d, s_max, lens = 2, 4, 2, 64, 256, [256, 90]
+    cache = init_cache(b, hkv, s_max, d, quant=quant)
+    kn = jax.random.normal(jax.random.PRNGKey(0), (b, hkv, s_max, d),
+                           jnp.bfloat16)
+    vn = jax.random.normal(jax.random.PRNGKey(1), (b, hkv, s_max, d),
+                           jnp.bfloat16)
+    cache = dataclasses.replace(update_cache(cache, kn, vn),
+                                length=jnp.asarray(lens, jnp.int32))
+    q = jax.random.normal(jax.random.PRNGKey(2), (b, hq, 1, d), jnp.bfloat16)
+    o, lse = _decode_attention(q, cache, with_lse=True)
+    kd = dequantize(cache.k, cache.k_scale).astype(jnp.float32)
+    vd = dequantize(cache.v, cache.v_scale).astype(jnp.float32)
+    for i, ln in enumerate(lens):
+        o_ref, lse_ref = reference_attention_with_lse(
+            q[i:i + 1].astype(jnp.float32), kd[i:i + 1, :, :ln],
+            vd[i:i + 1, :, :ln])
+        assert verify_results(o_ref, o[i:i + 1], atol=2e-2, rtol=2e-2).passed
+        np.testing.assert_allclose(np.asarray(lse[i:i + 1]),
+                                   np.asarray(lse_ref), atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.parametrize("quant", ["int8", "fp8"])
-def test_decode_h_fuse_kernel_path(quant, monkeypatch):
-    """The h_fuse>1 kernel path (multi-head fetch + per-head loop inside a
-    grid step) must match the h_fuse=1 path exactly on the same cache."""
-    b, hq, hkv, d, smax = 2, 8, 4, 64, 512
-    keys = jax.random.split(jax.random.PRNGKey(1), 3)
-    cache = init_cache(b, hkv, smax, d, quant=quant)
-    k_toks = jax.random.normal(keys[0], (b, hkv, smax, d), jnp.bfloat16)
-    v_toks = jax.random.normal(keys[1], (b, hkv, smax, d), jnp.bfloat16)
-    cache = update_cache(cache, k_toks, v_toks)
-    q = jax.random.normal(keys[2], (b, hq, d), jnp.bfloat16)
-
-    monkeypatch.setenv("FLASHATTN_DECODE_HFUSE", "1")
-    jax.clear_caches()
-    o_1 = decode_attention(q, cache, block_kv=512)
-    monkeypatch.setenv("FLASHATTN_DECODE_HFUSE", "2")
-    jax.clear_caches()
-    o_2 = decode_attention(q, cache, block_kv=512)
-    monkeypatch.delenv("FLASHATTN_DECODE_HFUSE")
-    jax.clear_caches()
-    r = verify_results(o_1, o_2, rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("quant", [None, "fp8"])
+def test_decode_chunk_window(quant):
+    """Chunk rows each keep their OWN window edge (row t's window ends at
+    its own position), against the causal-window oracle."""
+    b, hq, hkv, d, s_max, t, w = 2, 4, 2, 64, 256, 8, 40
+    cache = init_cache(b, hkv, s_max, d, quant=quant)
+    n = 150
+    kn = jax.random.normal(jax.random.PRNGKey(0), (b, hkv, n, d),
+                           jnp.bfloat16)
+    vn = jax.random.normal(jax.random.PRNGKey(1), (b, hkv, n, d),
+                           jnp.bfloat16)
+    cache = update_cache(cache, kn, vn)
+    q = jax.random.normal(jax.random.PRNGKey(2), (b, hq, t, d), jnp.bfloat16)
+    o = decode_attention_chunk(q, cache, window=w)
+    kd = dequantize(cache.k, cache.k_scale)[:, :, :n].astype(jnp.float32)
+    vd = dequantize(cache.v, cache.v_scale)[:, :, :n].astype(jnp.float32)
+    o_ref = reference_attention(q.astype(jnp.float32), kd, vd,
+                                is_causal=True, window=w)
+    r = verify_results(o_ref, o, atol=3e-2, rtol=3e-2)
     assert r.passed, r
+
+
+def test_decode_alibi_matches_oracle():
+    b, hq, hkv, d, s_max, length = 2, 8, 2, 64, 256, 200
+    cache = init_cache(b, hkv, s_max, d, dtype=jnp.float32)
+    kn = jax.random.normal(jax.random.PRNGKey(0), (b, hkv, length, d))
+    vn = jax.random.normal(jax.random.PRNGKey(1), (b, hkv, length, d))
+    cache = update_cache(cache, kn, vn)
+    q = jax.random.normal(jax.random.PRNGKey(2), (b, hq, d))
+    o = decode_attention(q, cache, alibi=True)
+    o_ref = reference_attention(q[:, :, None], kn, vn, is_causal=True,
+                                alibi=True)[:, :, 0]
+    r = verify_results(o_ref, o, atol=1e-5, rtol=1e-5)
+    assert r.passed, r
+
+
+def test_dead_cache_scale_garbage_cannot_poison():
+    """NaN scales in dead positions of a quantized cache (a recycled slot's
+    stale tail) must not reach the output either."""
+    b, hq, hkv, d, s_max, length = 1, 4, 2, 64, 256, 100
+    cache = init_cache(b, hkv, s_max, d, quant="int8")
+    kn = jax.random.normal(jax.random.PRNGKey(0), (b, hkv, length, d),
+                           jnp.bfloat16)
+    vn = jax.random.normal(jax.random.PRNGKey(1), (b, hkv, length, d),
+                           jnp.bfloat16)
+    clean = update_cache(cache, kn, vn)
+    poisoned = dataclasses.replace(
+        clean,
+        k_scale=clean.k_scale.at[..., length:].set(jnp.nan),
+        v_scale=clean.v_scale.at[..., length:].set(jnp.nan),
+    )
+    q = jax.random.normal(jax.random.PRNGKey(2), (b, hq, d), jnp.bfloat16)
+    o = decode_attention(q, poisoned)
+    assert bool(jnp.isfinite(o.astype(jnp.float32)).all())
+    np.testing.assert_array_equal(np.asarray(o, np.float32),
+                                  np.asarray(decode_attention(q, clean),
+                                             np.float32))

@@ -18,7 +18,8 @@ def test_pod_mesh_shapes():
     mesh = pod_mesh(model=2, sp=2)
     assert mesh.axis_names == ("data", "model", "sp")
     assert mesh.shape == {"data": 2, "model": 2, "sp": 2}
-    # data must be the OUTERMOST axis (host-major device order -> DCN-safe).
+    # data must be the OUTERMOST axis (host-major device order -> the host
+    # boundary falls on it).
     grid = np.array(mesh.devices)
     assert grid.shape == (2, 2, 2)
 

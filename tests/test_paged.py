@@ -66,7 +66,7 @@ def test_paged_matches_dense_single(quant):
     np.testing.assert_array_equal(np.asarray(dense.length),
                                   np.asarray(paged.length))
     q = jax.random.normal(jax.random.PRNGKey(7), (B, HQ, D))
-    o_dense = decode_attention(q, dense, block_kv=PAGE)
+    o_dense = decode_attention(q, dense)
     o_paged = paged_decode_attention(q, paged)
     r = verify_results(o_dense, o_paged, atol=1e-6, rtol=1e-6)
     assert r.passed, r
@@ -77,7 +77,7 @@ def test_paged_matches_dense_chunk():
     lengths = [256 + t, 130 + t]
     dense, paged = make_pair(lengths)
     q = jax.random.normal(jax.random.PRNGKey(8), (B, HQ, t, D))
-    o_dense = decode_attention_chunk(q, dense, block_kv=PAGE)
+    o_dense = decode_attention_chunk(q, dense)
     o_paged = paged_decode_attention_chunk(q, paged)
     r = verify_results(o_dense, o_paged, atol=1e-6, rtol=1e-6)
     assert r.passed, r
@@ -87,7 +87,7 @@ def test_paged_window():
     lengths = [420, 200]
     dense, paged = make_pair(lengths)
     q = jax.random.normal(jax.random.PRNGKey(9), (B, HQ, D))
-    o_dense = decode_attention(q, dense, block_kv=PAGE, window=256)
+    o_dense = decode_attention(q, dense, window=256)
     o_paged = paged_decode_attention(q, paged, window=256)
     r = verify_results(o_dense, o_paged, atol=1e-6, rtol=1e-6)
     assert r.passed, r
@@ -102,7 +102,7 @@ def test_paged_append_across_page_boundary():
     dense = update_cache(dense, k_new, v_new)
     paged = append_paged(paged, k_new, v_new)
     q = jax.random.normal(jax.random.PRNGKey(12), (B, HQ, D))
-    o_dense = decode_attention(q, dense, block_kv=PAGE)
+    o_dense = decode_attention(q, dense)
     o_paged = paged_decode_attention(q, paged)
     r = verify_results(o_dense, o_paged, atol=1e-6, rtol=1e-6)
     assert r.passed, r
@@ -196,7 +196,7 @@ def test_paged_sink():
     lengths = [900, 400]
     dense, paged = make_pair(lengths)
     q = jax.random.normal(jax.random.PRNGKey(16), (B, HQ, D))
-    o_dense = decode_attention(q, dense, block_kv=PAGE, window=256, sink=16)
+    o_dense = decode_attention(q, dense, window=256, sink=16)
     o_paged = paged_decode_attention(q, paged, window=256, sink=16)
     r = verify_results(o_dense, o_paged, atol=1e-6, rtol=1e-6)
     assert r.passed, r

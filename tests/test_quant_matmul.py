@@ -27,7 +27,7 @@ def make(m, k, n, seed=0):
 def test_kernel_matches_dequant_oracle(bits):
     x, w = make(64, 1024, 512)
     qw = quantize_weights(w, bits=bits)
-    y = quant_matmul(x, qw, block_m=64, block_n=256, block_k=256)
+    y = quant_matmul(x, qw)
     y_oracle = jnp.dot(x.astype(jnp.float32), dequantize_weights(qw))
     rel = float(
         jnp.max(jnp.abs(y.astype(jnp.float32) - y_oracle))
@@ -46,21 +46,21 @@ def test_dequant_roundtrip(bits, tol):
 
 
 def test_int4_tiling_invariance():
-    """The half-split nibble pairing must produce identical results for any
-    block_k (regression for the global-vs-tiled split pairing bug)."""
+    """The half-split nibble pairing: packed row r carries original rows r
+    and r + K/2, and the product must pair each plane with its own half of
+    x — identical to the f32 product against the dequantized weights."""
     x, w = make(16, 1024, 256)
     qw = quantize_weights(w, bits=4)
-    y1 = quant_matmul(x, qw, block_k=256, block_n=256)
-    y2 = quant_matmul(x, qw, block_k=1024, block_n=256)
-    np.testing.assert_allclose(
-        np.asarray(y1, np.float32), np.asarray(y2, np.float32), atol=1e-2
-    )
+    y = quant_matmul(x.astype(jnp.float32), qw)
+    y_ref = x.astype(jnp.float32) @ dequantize_weights(qw)
+    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_ragged_m():
     x, w = make(13, 512, 256)
     qw = quantize_weights(w, bits=8)
-    y = quant_matmul(x, qw, block_m=8, block_n=256, block_k=256)
+    y = quant_matmul(x, qw)
     assert y.shape == (13, 256)
     y_oracle = jnp.dot(x.astype(jnp.float32), dequantize_weights(qw))
     rel = float(
@@ -86,7 +86,7 @@ def test_quant_matmul_awkward_real_dims(k, n):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quant_matmul_a8(bits):
-    """W8A8 / W4A8: int8-MXU path with per-row activation quantization —
+    """W8A8 / W4A8: int8 x int8 product with per-row activation quantization —
     accuracy budget is looser (activation quant noise ~0.4%)."""
     key = jax.random.PRNGKey(3)
     x = jax.random.normal(key, (16, 512), jnp.float32)

@@ -6,7 +6,7 @@ is sharded around the ring: the kernels take the per-hop shard alignment as
 edge, and the ALiBi distance are all computed in true global coordinates.
 Oracle = the pure-jnp reference attention on the unsharded arrays — the same
 tile-merge algebra the reference derives (``Phase_0.md:123-188``), applied
-across chips instead of VMEM tiles.
+across devices instead of kernel tiles.
 """
 
 import functools
@@ -27,7 +27,6 @@ BS = BlockSizes(
     block_q=128, block_kv=128,
     block_q_dq=128, block_kv_dq=128,
     block_q_dkv=128, block_kv_dkv=128,
-    block_q_fused=128, block_kv_fused=128,
 )
 
 

@@ -1,33 +1,25 @@
-"""Property tests for the wavefront builders (pure numpy — no kernels).
+"""Property tests for the kernels' block ranges (pure index math — no
+kernels).
 
-The enumerated tiles + per-tile thresholds ARE the kernel's masking: these
-tests reconstruct the implied (row, col) visibility from the meta arrays
-and compare it against a brute-force mask over many random geometries —
-causal offsets (positive and negative), ragged tails, sliding windows —
-plus the structural flags the kernels' predicated write-through relies on
-(every q row has exactly one FIRST and one LAST step; the fused builder's
-KJ-first column marks exactly the first touch of every enumerated kv tile).
+`kv_block_range` (forward and dQ: which K/V blocks a q block loops over)
+and `q_block_range` (dK/dV: which q blocks see a K/V block) ARE the kernels'
+causal/window pruning, and their split into masked and mask-free blocks
+decides where the element mask may be skipped. These tests reconstruct the
+implied (row, col) visibility and compare it against a brute-force mask over
+many geometries — causal offsets (positive and negative), ragged tails,
+sliding windows — with Python ints and with traced int32 scalars (the
+kernels evaluate the same helpers on `pl.program_id` and on a traced
+offset).
 """
 
+import math
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flashattn_tpu.ops.flash_fwd import (
-    _BIG,
-    META_CTHRESH,
-    META_FIRST,
-    META_KJ,
-    META_LAST,
-    META_LTHRESH,
-    META_QI,
-    META_RTHRESH,
-    build_wavefront,
-)
-from flashattn_tpu.ops.flash_bwd_fused import (
-    FUSED_G,
-    FUSED_KJ_FIRST,
-    build_fused_wavefront,
-)
+from flashattn_tpu.ops.flash_fwd import kv_block_range, q_block_range
 
 
 def brute_mask(s_q, s_k, causal_offset, window):
@@ -38,21 +30,6 @@ def brute_mask(s_q, s_k, causal_offset, window):
         m &= c <= r + causal_offset
         if window is not None:
             m &= c >= r + causal_offset - window + 1
-    return m
-
-
-def mask_from_meta(meta, bq, bkv, s_q, s_k):
-    m = np.zeros((s_q, s_k), bool)
-    for row in meta:
-        qi, kj = row[META_QI], row[META_KJ]
-        rth, cth, lth = row[META_RTHRESH], row[META_CTHRESH], row[META_LTHRESH]
-        for rr in range(min(bq, s_q - qi * bq)):
-            lo = max(0, rr + lth)
-            hi = min(min(rr + rth, cth), bkv - 1)
-            for cc in range(lo, hi + 1):
-                col = kj * bkv + cc
-                if col < s_k:
-                    m[qi * bq + rr, col] = True
     return m
 
 
@@ -70,109 +47,94 @@ GEOMETRIES = [
 ]
 
 
+def _ranges(fn, idx, traced, **kw):
+    """Evaluate a range helper with Python ints, or under jit with the
+    block index and offset traced (as in the kernels)."""
+    if not traced:
+        return tuple(int(x) for x in fn(idx, **kw))
+    offset = kw.pop("offset")
+    out = jax.jit(lambda i, off: jnp.stack(
+        [jnp.asarray(x) for x in fn(i, offset=off, **kw)]))(
+            jnp.int32(idx), jnp.int32(offset))
+    return tuple(int(x) for x in np.asarray(out))
+
+
+def _fwd_visibility(s_q, s_k, bq, bkv, off, window, traced):
+    """(visible, masked-block marks) implied by kv_block_range."""
+    nq, nk = math.ceil(s_q / bq), math.ceil(s_k / bkv)
+    vis = np.zeros((nq * bq, nk * bkv), bool)
+    free = np.zeros_like(vis)  # cells of blocks the kernel runs mask-free
+    want = brute_mask(nq * bq, nk * bkv, off, window)
+    want[:, s_k:] = False
+    for qi in range(nq):
+        lo, b, c, hi = _ranges(
+            kv_block_range, qi, traced, block_q=bq, block_kv=bkv,
+            num_kv_blocks=nk, s_k=s_k, offset=0 if off is None else off,
+            causal=off is not None, window=window)
+        assert 0 <= lo <= b <= c <= hi <= nk, (qi, lo, b, c, hi)
+        rows = slice(qi * bq, (qi + 1) * bq)
+        for kj in range(lo, hi):
+            cols = slice(kj * bkv, (kj + 1) * bkv)
+            if b <= kj < c:
+                free[rows, cols] = True
+                vis[rows, cols] = True
+            else:
+                vis[rows, cols] = want[rows, cols]
+    return vis, free, want
+
+
 @pytest.mark.parametrize("s_q,s_k,bq,bkv,off,window", GEOMETRIES)
 def test_wavefront_matches_brute_force(s_q, s_k, bq, bkv, off, window):
-    import math
-
-    nq = math.ceil(s_q / bq)
-    nk = math.ceil(s_k / bkv)
-    meta = build_wavefront(nq, nk, bq, bkv, s_k, off, window=window)
-    got = mask_from_meta(meta, bq, bkv, nq * bq, nk * bkv)[:s_q, :s_k]
-    want = brute_mask(s_q, s_k, off, window)
-    np.testing.assert_array_equal(got, want)
+    """Forward / dQ: the visited blocks with their masks reproduce the
+    brute-force visibility exactly (no missed block, nothing extra)."""
+    vis, _, want = _fwd_visibility(s_q, s_k, bq, bkv, off, window, False)
+    np.testing.assert_array_equal(vis[:s_q, :s_k], want[:s_q, :s_k])
 
 
 @pytest.mark.parametrize("s_q,s_k,bq,bkv,off,window", GEOMETRIES)
 def test_wavefront_row_flags(s_q, s_k, bq, bkv, off, window):
-    import math
-
-    nq = math.ceil(s_q / bq)
-    nk = math.ceil(s_k / bkv)
-    meta = build_wavefront(nq, nk, bq, bkv, s_k, off, window=window)
-    # Every q tile appears (even fully-masked rows get a sentinel step so
-    # the output block is written), with exactly one FIRST and one LAST,
-    # FIRST at its first step and LAST at its final step.
-    for qi in range(nq):
-        steps = np.flatnonzero(meta[:, META_QI] == qi)
-        assert len(steps) >= 1
-        firsts = meta[steps, META_FIRST]
-        lasts = meta[steps, META_LAST]
-        assert firsts.sum() == 1 and lasts.sum() == 1
-        assert firsts[0] == 1 and lasts[-1] == 1
+    """Mask classes: every block the kernels run mask-free is fully
+    visible for every row of its q block (padded rows included, since the
+    kernel computes them too), and the traced evaluation agrees."""
+    vis, free, want = _fwd_visibility(s_q, s_k, bq, bkv, off, window, True)
+    assert want[free].all()
+    np.testing.assert_array_equal(vis[:s_q, :s_k], want[:s_q, :s_k])
 
 
-@pytest.mark.parametrize("q_per_kv", [1, 2])
+@pytest.mark.parametrize("traced", [False, True])
 @pytest.mark.parametrize("s_q,s_k,bq,bkv,off,window", GEOMETRIES)
 def test_dkv_wavefront_matches_brute_force(s_q, s_k, bq, bkv, off, window,
-                                           q_per_kv):
-    """The dKV wavefront's (kj, qi) tiles + thresholds must imply the same
-    visibility as the forward mask (transposed layout: q rows are LANES),
-    with padded q rows masked via DKV_ROWTHRESH, and each kv tile must get
-    exactly one FIRST (write-through init) and one LAST (finalize)."""
-    import math
-
-    from flashattn_tpu.ops.flash_bwd import (
-        DKV_FIRST,
-        DKV_KJ,
-        DKV_LAST,
-        DKV_LTHRESH,
-        DKV_QI,
-        DKV_ROWTHRESH,
-        DKV_RTHRESH,
-        build_dkv_wavefront,
-    )
-
-    if window is not None and off is None:
-        pytest.skip("window requires causal")
-    nq = math.ceil(s_q / bq)
-    nk = math.ceil(s_k / bkv)
-    meta = build_dkv_wavefront(nq, nk, bq, bkv, s_q, q_per_kv, off,
-                               window=window)
-    got = np.zeros((nq * bq, nk * bkv), bool)
-    for row in meta[meta[:, 1] == 0]:  # group 0 only (groups repeat)
-        kj, qi = row[DKV_KJ], row[DKV_QI]
-        rth, rowth, lth = (row[DKV_RTHRESH], row[DKV_ROWTHRESH],
-                           row[DKV_LTHRESH])
-        for rr in range(bq):
-            if rr > rowth:
-                continue  # padded q row
-            for cc in range(bkv):
-                # Thresholds are in block-local coords: visible iff
-                # lth <= (cc - rr) <= rth.
-                if lth <= cc - rr <= rth:
-                    col = kj * bkv + cc
-                    got[qi * bq + rr, col] = True
-    want_full = brute_mask(nq * bq, nk * bkv, off, window)
-    # Rows beyond s_q are masked by ROWTHRESH; cols beyond s_k do not exist
-    # in the dKV output we compare (dead kv rows produce ~0 grads via p=0,
-    # so the builder may legally enumerate them).
-    np.testing.assert_array_equal(got[:s_q, :s_k], want_full[:s_q, :s_k])
-    assert not got[s_q:].any()
+                                           traced):
+    """dK/dV: the q blocks visiting each K/V block, with their masks, must
+    imply the forward's visibility on the real rows/cols; mask-free (kv,
+    q) block pairs must be fully visible on every real row."""
+    nq, nk = math.ceil(s_q / bq), math.ceil(s_k / bkv)
+    want = brute_mask(nq * bq, nk * bkv, off, window)
+    got = np.zeros_like(want)
     for kj in range(nk):
-        steps = np.flatnonzero(meta[:, DKV_KJ] == kj)
-        assert len(steps) >= 1
-        assert meta[steps, DKV_FIRST].sum() == 1
-        assert meta[steps, DKV_LAST].sum() == 1
-        assert meta[steps[0], DKV_FIRST] == 1
-        assert meta[steps[-1], DKV_LAST] == 1
+        lo, b, c, hi = _ranges(
+            q_block_range, kj, traced, block_q=bq, block_kv=bkv,
+            num_q_blocks=nq, offset=0 if off is None else off,
+            causal=off is not None, window=window)
+        assert 0 <= lo <= b <= c <= hi <= nq, (kj, lo, b, c, hi)
+        cols = slice(kj * bkv, (kj + 1) * bkv)
+        for qi in range(lo, hi):
+            rows = slice(qi * bq, (qi + 1) * bq)
+            if b <= qi < c:
+                assert want[rows, cols].all(), (kj, qi)
+                got[rows, cols] = True
+            else:
+                got[rows, cols] = want[rows, cols]
+    np.testing.assert_array_equal(got[:s_q, :s_k], want[:s_q, :s_k])
 
 
-@pytest.mark.parametrize("q_per_kv", [1, 2])
-@pytest.mark.parametrize("s_q,s_k,bq,bkv,off,window", GEOMETRIES)
-def test_fused_wavefront_kj_first(s_q, s_k, bq, bkv, off, window, q_per_kv):
-    import math
-
-    nq = math.ceil(s_q / bq)
-    nk = math.ceil(s_k / bkv)
-    meta = build_fused_wavefront(nq, nk, bq, bkv, s_k, q_per_kv, off,
-                                 window=window)
-    # The group column repeats the base wavefront per GQA member.
-    assert set(meta[:, FUSED_G].tolist()) == set(range(q_per_kv))
-    # KJ_FIRST marks exactly the first occurrence of every enumerated kj
-    # (the kernel's write-through init relies on this).
-    seen = set()
-    for row in meta:
-        kj, flag = int(row[META_KJ]), int(row[FUSED_KJ_FIRST])
-        assert flag == (kj not in seen)
-        seen.add(kj)
-    assert seen == set(meta[:, META_KJ].tolist())
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("off", [-20, -3, 0, 7, 40])
+def test_traced_offset_matches_static(off, window):
+    """The traced offset (zigzag ring hops) gives the same ranges as the
+    static one, including offsets that leave whole blocks empty."""
+    for qi in range(5):
+        kw = dict(block_q=4, block_kv=8, num_kv_blocks=3, s_k=20, offset=off,
+                  causal=True, window=window)
+        assert (_ranges(kv_block_range, qi, False, **dict(kw))
+                == _ranges(kv_block_range, qi, True, **dict(kw)))

@@ -7,7 +7,7 @@ import pytest
 
 from flashattn_tpu import flash_attention
 from flashattn_tpu.ops.common import BlockSizes
-from flashattn_tpu.ops.flash_fwd import build_wavefront
+from flashattn_tpu.ops.flash_fwd import kv_block_range
 from flashattn_tpu.ops.reference import reference_attention
 from flashattn_tpu.utils.verify import verify_results
 
@@ -49,15 +49,19 @@ def test_window_grads(window):
 
 
 def test_window_prunes_wavefront():
-    """A small window must shrink the enumerated tile pairs, not just mask."""
-    full = build_wavefront(16, 16, 128, 128, 2048, causal_offset=0)
-    windowed = build_wavefront(16, 16, 128, 128, 2048, causal_offset=0,
-                               window=256)
-    assert windowed.shape[0] < full.shape[0] // 2
-    # Every q block appears, with at most ceil(256/128)+1 = 3 kv blocks.
-    import numpy as np
-    counts = np.bincount(windowed[:, 0])
-    assert counts.max() <= 3 and len(counts) == 16
+    """A small window must shrink each q block's K/V loop, not just mask."""
+
+    def visited(qi, window):
+        lo, _, _, hi = kv_block_range(
+            qi, block_q=128, block_kv=128, num_kv_blocks=16, s_k=2048,
+            offset=0, causal=True, window=window)
+        return hi - lo
+
+    full = sum(visited(qi, None) for qi in range(16))
+    windowed = [visited(qi, 256) for qi in range(16)]
+    assert sum(windowed) < full // 2
+    # Every q block visits at most ceil(256/128)+1 = 3 kv blocks.
+    assert max(windowed) <= 3 and min(windowed) >= 1
 
 
 def test_window_larger_than_seq_equals_causal():

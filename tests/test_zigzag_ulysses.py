@@ -24,7 +24,6 @@ BS = BlockSizes(
     block_q=128, block_kv=128,
     block_q_dq=128, block_kv_dq=128,
     block_q_dkv=128, block_kv_dkv=128,
-    block_q_fused=128, block_kv_fused=128,
 )
 
 
